@@ -1,0 +1,346 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON line; any failure raises and exits non-zero:
+
+1. build    — compile every hand-written kernel with nvcc (in parallel).
+2. kernels  — each kernel's wrapper against its plain PyTorch version on the
+              card, at small shapes and at the main path's shape, with times.
+3. forward  — Llama-3-8B width (32 layers, bf16, random weights from a seed):
+              tokens [2, 2048] through llama_forward(attn_impl="auto") and
+              llama_loss; the flash kernel must launch once per layer; logits
+              against attn_impl="plain" (relative L2 <= 3e-2), and a 2-layer
+              float32 run at full width (<= 1e-4).
+4. serving  — ContinuousBatchingEngine at the same width answers 6 concurrent
+              requests in the planned loop (eos_id None) and the reactive loop
+              (an eos_id); in float32 at 2 layers its greedy tokens must equal
+              generate()'s exactly.
+
+Then the {"kernels": [...]} line, the card's name and power limit, and as the
+last line {"ok": true, "device": {...}}. Without a CUDA device, or without the
+ray_tpu_torch package beside it, the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12    # float32 outside the tensor cores
+H100_BYTES_PER_S = 3.35e12
+SEED = 0
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of fn() by CUDA events over ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def attention_bound_ms(B, T, Tk, H, D, itemsize, causal) -> tuple[float, str]:
+    """Least time for the flash forward's work on an H100: the products over
+    the (row, key) pairs this mask keeps, against each input read once and
+    each output (out and the float32 lse) written once."""
+    pairs = sum(min(r + 1, Tk) for r in range(T)) if causal else T * Tk
+    ops = 4 * B * H * D * pairs
+    peak = H100_BF16_FLOPS if itemsize == 2 else H100_F32_FLOPS
+    nbytes = (2 * B * T * H * D + 2 * B * Tk * H * D) * itemsize + 4 * B * H * T
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_numel(v) for v in tree.values())
+    return tree.numel()
+
+
+def rel_l2(a, b) -> float:
+    num = den = 0.0
+    for i in range(a.shape[0]):  # row by row: the logits are GBs in float32
+        x, y = a[i].float(), b[i].float()
+        num += float(((x - y) ** 2).sum())
+        den += float((y ** 2).sum())
+    return math.sqrt(num / den)
+
+
+def phase_kernels(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_attention_forward, flash_attention_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for (B, T, Tk, H, D) in ((2, 256, 256, 4, 64), (1, 384, 640, 3, 128),
+                                     (1, 640, 384, 2, 128), (1, 200, 200, 2, 256)):
+                cases.append((B, T, Tk, H, D, dtype, causal))
+    main = (2, 2048, 2048, 32, 128, torch.bfloat16, True)
+    cases.append(main)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    tol = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+    for (B, T, Tk, H, D, dtype, causal) in cases:
+        q = torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype)
+        k = torch.randn((B, Tk, H, D), generator=g, device="cuda").to(dtype)
+        v = torch.randn((B, Tk, H, D), generator=g, device="cuda").to(dtype)
+        out, lse = flash_attention_forward(q, k, v, causal=causal)
+        ref, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(),
+                                             causal=causal, sm_scale=D ** -0.5)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref).abs().max())
+        lse_err = float((lse - ref_lse).abs().max())
+        worst[dtype] = max(worst[dtype], err)
+        row = {"phase": "kernel_check", "kernel": "flash_attention_fwd", "B": B, "T": T,
+               "Tk": Tk, "H": H, "D": D, "dtype": str(dtype).split(".")[1],
+               "causal": causal, "max_abs_err": err, "lse_max_abs_err": lse_err,
+               "tol": tol[dtype]}
+        emit(row)
+        if not (err <= tol[dtype] and lse_err <= 1e-3):
+            raise AssertionError(f"flash_attention_fwd disagrees with its plain version: {row}")
+        if (B, T, Tk, H, D, dtype, causal) == main:
+            main_err = err
+            main_qkv = (q, k, v)
+        else:
+            del q, k, v, out, ref
+    q, k, v = main_qkv
+    B, T, Tk, H, D = main[:5]
+    ms = cuda_ms(lambda: flash_attention_forward(q, k, v, causal=True))
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True, sm_scale=D ** -0.5),
+                       iters=5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    bound_ms, bound_by = attention_bound_ms(B, T, Tk, H, D, 2, True)
+    timing = {"phase": "kernel_time", "kernel": "flash_attention_fwd",
+              "shape": [B, T, H, D], "dtype": "bfloat16", "causal": True,
+              "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "max_abs_err_f32": worst[torch.float32],
+              "max_abs_err_bf16": worst[torch.bfloat16], "card": card}
+    emit(timing)
+    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_forward(card: str, kernels, cfg, params, tokens):
+    """Returns (flash launches on the main path, the 2-layer float32 config
+    and weights)."""
+    import torch
+
+    from ray_tpu_torch.models.llama import llama_forward, llama_init, llama_loss
+
+    K = "flash_attention_fwd"
+    inputs = tokens[:, :-1]
+    with torch.inference_mode():
+        llama_forward(params, inputs[:, :1024], cfg)  # warm-up (cuBLAS, allocator)
+        kernels.LAUNCHES.clear()  # the main path starts here
+        logits, _ = llama_forward(params, inputs, cfg, attn_impl="auto")
+        fwd_launches = kernels.LAUNCHES[K]
+        loss, loss_ms = timed(lambda: llama_loss(params, {"tokens": tokens}, cfg))
+        launches = kernels.LAUNCHES[K]
+        if fwd_launches != cfg.n_layers or launches != 2 * cfg.n_layers:
+            raise AssertionError(f"flash kernel launches {fwd_launches}/{launches}, "
+                                 f"want {cfg.n_layers} per forward")
+        plain, _ = llama_forward(params, inputs, cfg, attn_impl="plain")
+        plain_loss = llama_loss(params, {"tokens": tokens}, cfg, attn_impl="plain")
+        if tuple(logits.shape) != (*inputs.shape, cfg.vocab_size):
+            raise AssertionError(f"logits shape {tuple(logits.shape)}")
+        if not bool(torch.isfinite(logits).all()) or not math.isfinite(float(loss)):
+            raise AssertionError("non-finite logits or loss")
+        err = rel_l2(logits, plain)
+        del logits, plain
+        fwd_ms = {"auto": [], "plain": []}
+        for impl in ("plain", "auto", "auto", "plain"):  # in turns, one card
+            _, ms = timed(lambda: llama_forward(params, inputs, cfg, attn_impl=impl)[0].sum())
+            fwd_ms[impl].append(ms)
+        # least time of the forward's matrix products (every weight but the
+        # embedding, 2 operations per weight per token) at the bf16 peak
+        matmul_ops = 2 * inputs.numel() * (tree_numel(params) - params["tok"]["embedding"].numel())
+        emit({"phase": "forward", "config": "llama3_8b", "layers": cfg.n_layers,
+              "dtype": cfg.dtype, "tokens": list(inputs.shape), "flash_launches": launches,
+              "logits_rel_l2_vs_plain": err, "tol": 3e-2, "loss": float(loss),
+              "loss_plain": float(plain_loss), "forward_ms": fwd_ms["auto"],
+              "forward_plain_ms": fwd_ms["plain"], "loss_ms": loss_ms,
+              "matmul_bound_ms": matmul_ops / H100_BF16_FLOPS * 1e3, "card": card})
+        if not err <= 3e-2 or abs(float(loss) - float(plain_loss)) > 3e-2:
+            raise AssertionError(f"bf16 forward disagrees with plain attention: {err}")
+
+        cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        params32 = llama_init(g, cfg32, "cuda")
+        a, _ = llama_forward(params32, inputs, cfg32, attn_impl="auto")
+        b, _ = llama_forward(params32, inputs, cfg32, attn_impl="plain")
+        err32 = rel_l2(a, b)
+        del a, b
+        emit({"phase": "forward_f32", "layers": 2, "logits_rel_l2_vs_plain": err32,
+              "tol": 1e-4})
+        if not err32 <= 1e-4:
+            raise AssertionError(f"f32 forward disagrees with plain attention: {err32}")
+    return launches, cfg32, params32
+
+
+def serve(params, cfg, prompts, max_tokens, **engine_kw):
+    """Run every prompt through one engine concurrently; returns (outputs,
+    per-request time to first token in ms, wall seconds)."""
+    import torch
+
+    from ray_tpu_torch.llm import ContinuousBatchingEngine
+
+    async def go():
+        eng = ContinuousBatchingEngine(params, cfg, max_batch=4, page_size=16,
+                                       n_pages=512, max_seq_len=2048, **engine_kw)
+        await eng.start()
+        t0 = time.perf_counter()
+
+        async def one(p):
+            rid = eng.submit(p, max_tokens=max_tokens)
+            t_sub = time.perf_counter()
+            out, first = [], None
+            async for blk in eng.stream_blocks(rid):
+                if first is None:
+                    first = (time.perf_counter() - t_sub) * 1e3
+                out.extend(blk)
+            return out, first
+
+        try:
+            res = await asyncio.gather(*[one(p) for p in prompts])
+        finally:
+            await eng.stop()
+        if eng.error is not None:
+            raise RuntimeError("engine loop died") from eng.error
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    res, wall = asyncio.run(go())
+    return [r[0] for r in res], [r[1] for r in res], wall
+
+
+def phase_serving(card: str, kernels, cfg, params, cfg32, params32) -> dict:
+    """Returns the kernel launch counts of the serving runs."""
+    import numpy as np
+
+    from ray_tpu_torch.llm import generate
+
+    rng = np.random.default_rng(SEED)
+    lens = (16, 100, 257, 512, 1000, 1500)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lens]
+    max_tokens = 32
+    kernels.LAUNCHES.clear()
+    planned = None
+    for loop in ("planned", "reactive"):
+        eos = None if loop == "planned" else planned[0][max_tokens // 2]
+        outs, ttft, wall = serve(params, cfg, prompts, max_tokens, eos_id=eos)
+        for p, o in zip(prompts, outs):
+            ok_len = len(o) == max_tokens or (eos is not None and 0 < len(o) and o[-1] == eos)
+            if not ok_len or not all(0 <= t < cfg.vocab_size for t in o):
+                raise AssertionError(f"{loop}: bad completion for a {len(p)}-token prompt: {o}")
+        planned = planned or outs
+        n_tok = sum(len(o) for o in outs)
+        emit({"phase": "serving", "loop": loop, "layers": cfg.n_layers, "dtype": cfg.dtype,
+              "eos_id": eos, "requests": len(prompts), "prompt_lens": list(lens),
+              "completion_lens": [len(o) for o in outs], "ttft_ms": ttft,
+              "tokens_per_s": n_tok / wall, "wall_s": wall, "card": card})
+    serve_launches = dict(kernels.LAUNCHES)
+
+    ref = generate(params32, cfg32, prompts, max_new_tokens=max_tokens)
+    for loop, eos in (("planned", None), ("reactive", -1)):
+        outs, _, _ = serve(params32, cfg32, prompts, max_tokens, eos_id=eos)
+        same = [o == r for o, r in zip(outs, ref)]
+        emit({"phase": "serving_f32_parity", "loop": loop, "layers": 2,
+              "equal_to_generate": same})
+        if not all(same):
+            raise AssertionError(f"f32 engine ({loop}) differs from generate: {outs} vs {ref}")
+    return serve_launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "ray_tpu_torch")):
+        print("chip_smoke: the ray_tpu_torch package is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, here)
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+
+    t0 = time.perf_counter()
+    secs = kernels.build()
+    emit({"phase": "build", "nvcc_seconds": secs, "seconds": time.perf_counter() - t0})
+
+    k = phase_kernels(card)
+
+    cfg = LlamaConfig.llama3_8b()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    params, init_ms = timed(lambda: llama_init(g, cfg, "cuda"))
+    emit({"phase": "init", "config": "llama3_8b", "seconds": init_ms / 1e3,
+          "params": tree_numel(params)})
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2049), generator=g, device="cuda")
+    launches, cfg32, params32 = phase_forward(card, kernels, cfg, params, tokens)
+    serve_launches = phase_serving(card, kernels, cfg, params, cfg32, params32)
+
+    emit({"kernels": [{
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "ray_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "ray_tpu/ops/flash_attention.py:49",
+        "launches": launches, "serving_launches": serve_launches.get("flash_attention_fwd", 0),
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "library_ms": k["library_ms"]}]})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

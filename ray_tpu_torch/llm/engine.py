@@ -1,0 +1,817 @@
+"""Continuous-batching LLM engine with a paged KV cache and LoRA multiplex.
+
+Counterpart of ``ray_tpu/llm/engine.py`` in PyTorch. The design is the
+JAX engine's:
+
+* **Fixed decode slots.** One decode step advances ALL ``max_batch``
+  slots; inactive slots are masked. Admission writes a new request's
+  prompt KV into a free slot's pages between decode blocks, so a request
+  never waits for the running batch to drain.
+* **Paged KV.** One pool ``[layers, n_pages, page_size, kv, hd]`` per K
+  and V; each slot owns a page table. Page 0 is the junk page: it is
+  never allocated, dummy prefill rows and out-of-range decode writes land
+  there, and it is never read unmasked. The pools are updated IN PLACE
+  on the device's current stream (JAX donates them and gets new ones);
+  every write and read is ordered by that one stream.
+* **Fused decode blocks.** ``paged_decode_multi`` runs K steps with the
+  (token, position) carry kept on the device and no host sync inside a
+  block; the host reads a block's tokens through an asynchronous copy
+  while the next block is already queued.
+* **LoRA multiplex**: stacked low-rank adapters on the q/v projections,
+  selected per slot (adapter 0 = base model).
+
+Not in this slice (ROADMAP, PyTorch/CUDA port: rest of the engine): int8
+pools, ``scatter_pages``, suffix prefill, ``submit_prefilled`` and
+``export_pages``, and speculative decoding.
+"""
+from __future__ import annotations
+
+import asyncio
+import collections
+import itertools
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.llm.generation import _ffn, _gqa_attn, _gumbel_argmax
+from ray_tpu_torch.models.llama import LlamaConfig
+from ray_tpu_torch.ops.basic import matmul, rms_norm, rope, rope_freqs
+
+_LATER = "waits for a later slice (ROADMAP, PyTorch/CUDA port: rest of the engine)"
+
+
+def _lora_delta(h, loras, name, aid):
+    """Per-slot low-rank delta: h[B,T,D] x A[aid][D,r] x Bm[aid][r,O]."""
+    if loras is None:
+        return 0.0
+    a = loras[name + "_a"][aid]  # [B, D, r]
+    b = loras[name + "_b"][aid]  # [B, r, O]
+    dt = torch.promote_types(h.dtype, a.dtype)
+    return torch.einsum("btd,bdr->btr", h.to(dt), a.to(dt)) @ b.to(dt)
+
+
+def _kv_write(pool, i, row, off, val):
+    """Store new K/V rows of layer ``i`` in place. val: [..., KV, hd];
+    row/off index pool pages and in-page offsets."""
+    pool[i][row, off] = val.to(pool.dtype)
+
+
+def _kv_read(pool, i, page_tables):
+    """Gather the decode attention window [B, MAXP*PS, KV, hd] of layer
+    ``i`` through the page tables [B, MAXP]."""
+    return pool[i][page_tables].flatten(1, 2)
+
+
+def _choose(logits, temps, generator, sample: bool):
+    """Greedy tokens, with rows whose temperature is > 0 sampled when
+    ``sample`` (the host knows whether any live row samples, so the
+    Gumbel noise is drawn only then; JAX decides with ``lax.cond``)."""
+    greedy = logits.argmax(dim=-1)
+    if not sample:
+        return greedy
+    s = _gumbel_argmax(logits, temps.clamp_min(1e-6)[:, None], generator)
+    return torch.where(temps > 0, s, greedy)
+
+
+def _decode_body(params, loras, aids, tokens, pos, page_tables, kpool, vpool,
+                 active, temps, generator, cfg: LlamaConfig, cos, sin,
+                 sample: bool):
+    """One decode step for every slot (masked where inactive).
+
+    tokens: [B] current input token; pos: [B] tokens already cached (the
+    new token lands at that position); page_tables: [B, MAXP]; aids: [B]
+    adapter ids; temps: [B]. Returns next_tok [B]; the pools are written
+    in place."""
+    B = tokens.shape[0]
+    L, P, PS, KV, hd = kpool.shape
+    MAXP = page_tables.shape[1]
+    positions = pos[:, None]
+    # JAX's take_along_axis fills an out-of-range page index with INT_MIN
+    # and its .at[].set then drops the write; in torch both would fault. A
+    # slot decoding junk past its last page (planned mode, finished
+    # mid-block) gathers a clamped index and writes to the junk page 0.
+    pidx = pos // PS
+    row = torch.gather(page_tables, 1, pidx.clamp(max=MAXP - 1)[:, None])[:, 0]
+    row = torch.where(pidx < MAXP, row, torch.zeros_like(row))
+    off = pos % PS
+    key_idx = torch.arange(MAXP * PS, device=tokens.device)
+    mask = key_idx[None, None, :] <= pos[:, None, None]
+
+    x = params["tok"]["embedding"][tokens][:, None, :]
+    for i in range(cfg.n_layers):
+        layer = params[f"layers_{i}"]
+        h = rms_norm(x, layer["attn_norm"]["scale"])
+        q = (matmul(h, layer["wq"]["kernel"]) + _lora_delta(h, loras, "wq", aids)
+             ).reshape(B, 1, cfg.n_heads, hd)
+        k = matmul(h, layer["wk"]["kernel"]).reshape(B, 1, KV, hd)
+        v = (matmul(h, layer["wv"]["kernel"]) + _lora_delta(h, loras, "wv", aids)
+             ).reshape(B, 1, KV, hd)
+        q = rope(q, cos, sin, positions)
+        k = rope(k, cos, sin, positions)
+        _kv_write(kpool, i, row, off, k[:, 0])
+        _kv_write(vpool, i, row, off, v[:, 0])
+        kb = _kv_read(kpool, i, page_tables)
+        vb = _kv_read(vpool, i, page_tables)
+        att = _gqa_attn(q, kb, vb, mask)
+        x = x + matmul(att.reshape(B, 1, -1), layer["wo"]["kernel"])
+        x = _ffn(layer, x)
+    x = rms_norm(x, params["norm"]["scale"])
+    logits = matmul(x[:, 0], params["lm_head"]["kernel"])
+    nxt = _choose(logits, temps, generator, sample)
+    return torch.where(active, nxt, torch.zeros_like(nxt))
+
+
+@torch.inference_mode()
+def paged_decode_multi(params, loras, aids, tokens, seq_lens, page_tables,
+                       kpool, vpool, active, temps, generator, cfg: LlamaConfig,
+                       n_steps: int, sample: bool = False):
+    """``n_steps`` decode steps as one block: a Python loop with the
+    (tokens, positions) carry on the device and no host sync inside.
+
+    Returns (toks [n_steps, B], tok, pos); the final carry stays on the
+    device so consecutive blocks chain without a host round trip. Slots
+    that finish mid-block keep decoding junk: their gathers clamp, their
+    out-of-range writes go to the junk page, future-position writes are
+    masked until legitimately overwritten, and the host discards the
+    extra tokens."""
+    cos, sin = rope_freqs(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
+                          device=tokens.device)
+    tok, pos = tokens, seq_lens
+    out = []
+    for _ in range(n_steps):
+        tok = _decode_body(params, loras, aids, tok, pos, page_tables, kpool,
+                           vpool, active, temps, generator, cfg, cos, sin, sample)
+        pos = pos + 1
+        out.append(tok)
+    return torch.stack(out), tok, pos
+
+
+@torch.inference_mode()
+def paged_prefill_batch(params, loras, aids, tokens, pages, kpool, vpool,
+                        true_lens, temps, generator, cfg: LlamaConfig,
+                        sample: bool = False):
+    """Prefill a whole admission wave as ONE batched forward.
+
+    tokens: [N, Tp_pad] right-padded prompts (same pad bucket); pages:
+    [N, n_pages] pool pages per request (dummy rows use the junk page 0);
+    true_lens/temps: [N]. Writes the prompt KV into the pools in place and
+    returns the first tokens [N]."""
+    N, Tp = tokens.shape
+    L, P, PS, KV, hd = kpool.shape
+    dev = tokens.device
+    cos, sin = rope_freqs(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, device=dev)
+    idx = torch.arange(Tp, device=dev)
+    positions = idx[None, :]
+    mask = idx[None, :, None] >= idx[None, None, :]  # causal
+    rows = pages[:, idx // PS]  # [N, Tp] pool row per prompt position
+    offs = (idx % PS).expand(N, Tp)
+    x = params["tok"]["embedding"][tokens]  # [N, Tp, D]
+    for i in range(cfg.n_layers):
+        layer = params[f"layers_{i}"]
+        h = rms_norm(x, layer["attn_norm"]["scale"])
+        q = (matmul(h, layer["wq"]["kernel"]) + _lora_delta(h, loras, "wq", aids)
+             ).reshape(N, Tp, cfg.n_heads, hd)
+        k = matmul(h, layer["wk"]["kernel"]).reshape(N, Tp, KV, hd)
+        v = (matmul(h, layer["wv"]["kernel"]) + _lora_delta(h, loras, "wv", aids)
+             ).reshape(N, Tp, KV, hd)
+        q = rope(q, cos, sin, positions)
+        k = rope(k, cos, sin, positions)
+        _kv_write(kpool, i, rows, offs, k)
+        _kv_write(vpool, i, rows, offs, v)
+        att = _gqa_attn(q, k, v, mask)  # prefill attends the FRESH k/v
+        x = x + matmul(att.reshape(N, Tp, -1), layer["wo"]["kernel"])
+        x = _ffn(layer, x)
+    x = rms_norm(x, params["norm"]["scale"])
+    last = x[torch.arange(N, device=dev), true_lens - 1]
+    logits = matmul(last, params["lm_head"]["kernel"])  # [N, V]
+    return _choose(logits, temps, generator, sample)
+
+
+def make_lora_stack(cfg: LlamaConfig, adapters: dict[str, dict], rank: int,
+                    device):
+    """Stack named adapters into gatherable float32 tensors. Index 0 is the
+    base model (zero delta). adapters: name -> {"wq_a": [D,r], "wq_b":
+    [r,O], "wv_a": ..., "wv_b": ...}. Returns (stack dict, name->index)."""
+    D = cfg.d_model
+    O_q = cfg.n_heads * cfg.head_dim
+    O_v = cfg.n_kv_heads * cfg.head_dim
+    names = ["__base__"] + sorted(adapters)
+    idx = {n: i for i, n in enumerate(names)}
+    stack = {
+        "wq_a": np.zeros((len(names), D, rank), np.float32),
+        "wq_b": np.zeros((len(names), rank, O_q), np.float32),
+        "wv_a": np.zeros((len(names), D, rank), np.float32),
+        "wv_b": np.zeros((len(names), rank, O_v), np.float32),
+    }
+    for name, ad in adapters.items():
+        i = idx[name]
+        for k in stack:
+            if k in ad:
+                stack[k][i] = np.asarray(ad[k], np.float32)
+    return {k: torch.tensor(v, device=device) for k, v in stack.items()}, idx
+
+
+def make_kv_pools(cfg: LlamaConfig, page_size: int, n_pages: int,
+                  kv_dtype: str | None, device):
+    """One (kpool, vpool) pair of ``[L, P, PS, KV, hd]`` tensors: the
+    model's dtype for ``None``/"native", bfloat16 for "bf16"."""
+    if kv_dtype == "int8":
+        raise NotImplementedError(f"kv_dtype 'int8' {_LATER}")
+    if kv_dtype in (None, "native"):
+        dtype = cfg.torch_dtype
+    elif kv_dtype == "bf16":
+        dtype = torch.bfloat16
+    else:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    kpool = torch.zeros(shape, dtype=dtype, device=device)
+    return kpool, torch.zeros_like(kpool)
+
+
+class _HostCopy:
+    """A device tensor's copy to host memory, started when made and waited
+    for in ``numpy()``: the host's only sync point for a block's tokens,
+    so the next block can be queued before this one is read."""
+
+    def __init__(self, t):
+        if t.is_cuda:
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = t, None
+
+    def numpy(self):
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+@torch.inference_mode()
+def _merge_carry(tok_d, lens_d, slots, first, lens):
+    """Device-side carry merge of a prefill wave: no host sync."""
+    tok_d, lens_d = tok_d.clone(), lens_d.clone()
+    tok_d[slots] = first[:len(slots)]
+    lens_d[slots] = lens
+    return tok_d, lens_d
+
+
+@dataclass
+class _Request:
+    req_id: int
+    prompt: list[int]
+    max_tokens: int
+    temperature: float
+    adapter: int
+    out: asyncio.Queue = field(default_factory=asyncio.Queue)
+    slot: int = -1
+    emitted: int = 0
+    planned: int = 0  # tokens scheduled on-device (planned mode)
+    cancelled: bool = False
+    finished: bool = False  # completed normally (max_tokens or eos)
+
+
+class EngineFull(Exception):
+    """No free slot/pages and the waiting queue is at capacity."""
+
+
+class ContinuousBatchingEngine:
+    """Single-process engine on the device of ``params``; drive with
+    ``await engine.start()`` then ``submit`` / ``stream`` from the same
+    event loop."""
+
+    def __init__(self, params, cfg: LlamaConfig, *, max_batch: int = 8,
+                 page_size: int = 16, n_pages: int = 256,
+                 max_seq_len: int = 512, eos_id: int | None = None,
+                 lora_adapters: dict[str, dict] | None = None,
+                 lora_rank: int = 8, max_waiting: int = 256,
+                 block_buckets: tuple[int, ...] = (4, 8, 16, 32, 64),
+                 kv_dtype: str | None = None, spec_enable: bool = False):
+        if spec_enable:
+            raise NotImplementedError(f"speculative decoding {_LATER}")
+        self.params = params
+        self.cfg = cfg
+        self.device = params["tok"]["embedding"].device
+        self.B = max_batch
+        self.PS = page_size
+        self.MAXP = -(-max_seq_len // page_size)
+        self.eos_id = eos_id
+        self.max_waiting = max_waiting
+        # fused-decode block sizes; the loop picks the smallest bucket
+        # covering the longest remaining request
+        self.block_buckets = tuple(sorted(block_buckets))
+        self.kpool, self.vpool = make_kv_pools(cfg, page_size, n_pages,
+                                               kv_dtype, self.device)
+        self.kv_dtype = kv_dtype or "native"
+        self.n_pages = n_pages
+        self.free_pages = list(range(1, n_pages))  # page 0 = junk page
+        self.loras = None
+        self.lora_index = {"__base__": 0}
+        if lora_adapters:
+            self.loras, self.lora_index = make_lora_stack(
+                cfg, lora_adapters, lora_rank, self.device)
+        # slot state (host side)
+        self.slot_req: list[_Request | None] = [None] * self.B
+        self.page_tables = np.zeros((self.B, self.MAXP), np.int64)
+        self.seq_lens = np.zeros(self.B, np.int64)
+        self.next_tok = np.zeros(self.B, np.int64)
+        self.temps = np.zeros(self.B, np.float32)
+        self.aids = np.zeros(self.B, np.int64)
+        self.waiting: list[_Request] = []
+        self._req_ids = itertools.count(1)
+        self._reqs: dict[int, _Request] = {}
+        # finished requests not yet drained by a stream() consumer; bounded
+        # LRU so fire-and-forget submitters can't leak token queues forever
+        self._done: collections.OrderedDict[int, _Request] = (
+            collections.OrderedDict())
+        self._done_cap = 4 * self.B + max_waiting
+        self._wake = asyncio.Event()
+        self._running = False
+        self._task = None
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(0)
+        self.error: BaseException | None = None  # fatal loop failure
+        # counters for benchmarks / tests
+        self.steps = 0
+        self.tokens_out = 0
+
+    def _h2d(self, arr):
+        """Host array -> device tensor. ``torch.tensor`` copies, so the loop
+        may mutate its host arrays while the device still reads the copy."""
+        return torch.tensor(arr, device=self.device)
+
+    # ----------------------------------------------------------- public API
+    async def start(self):
+        if self._task is None:
+            self._running = True
+            self._task = asyncio.get_running_loop().create_task(self._loop())
+
+    async def stop(self):
+        self._running = False
+        self._wake.set()
+        if self._task is not None:
+            await self._task
+            self._task = None
+        # nothing will produce more tokens: unblock every live consumer
+        self._terminate_all_streams()
+
+    def _terminate_all_streams(self):
+        for req in list(self._reqs.values()):
+            req.out.put_nowait(None)
+        self._reqs.clear()
+        self._done.clear()
+        self.waiting.clear()
+        self.slot_req = [None] * self.B
+
+    def submit(self, prompt_tokens: list[int], *, max_tokens: int = 32,
+               temperature: float = 0.0, adapter: str | None = None,
+               spec: bool | None = None) -> int:
+        """Queue a request; returns its id. Tokens arrive on stream()."""
+        if spec:
+            raise NotImplementedError(f"speculative decoding {_LATER}")
+        if self.error is not None:
+            raise RuntimeError("engine loop died") from self.error
+        if len(self.waiting) >= self.max_waiting:
+            raise EngineFull(f"{len(self.waiting)} requests already waiting")
+        if not prompt_tokens:
+            raise ValueError("empty prompt")
+        if min(prompt_tokens) < 0 or max(prompt_tokens) >= self.cfg.vocab_size:
+            # JAX clamps an out-of-vocab id; a CUDA gather would fault
+            raise ValueError(f"prompt token outside the vocab "
+                             f"[0, {self.cfg.vocab_size})")
+        if len(prompt_tokens) + max_tokens > self.MAXP * self.PS:
+            raise ValueError(
+                f"prompt ({len(prompt_tokens)}) + max_tokens ({max_tokens}) "
+                f"exceeds the engine's max_seq_len ({self.MAXP * self.PS})")
+        n_need = -(-(len(prompt_tokens) + max_tokens) // self.PS)
+        if n_need > self.n_pages - 1:
+            raise ValueError(
+                f"request needs {n_need} KV pages but the pool only has "
+                f"{self.n_pages - 1}")
+        aid = self.lora_index.get(adapter or "__base__")
+        if aid is None:
+            raise ValueError(f"unknown LoRA adapter {adapter!r} "
+                             f"(loaded: {sorted(self.lora_index)})")
+        req = _Request(next(self._req_ids), list(prompt_tokens),
+                       int(max_tokens), float(temperature), aid)
+        self._reqs[req.req_id] = req
+        self.waiting.append(req)
+        self._wake.set()
+        return req.req_id
+
+    def tokens_in_flight(self) -> int:
+        """Decode tokens this engine still owes: remaining scheduled
+        tokens of resident requests plus everything waiting."""
+        live = sum(max(0, r.max_tokens - r.emitted)
+                   for r in self.slot_req if r is not None and not r.cancelled)
+        return live + sum(max(0, r.max_tokens - r.emitted)
+                          for r in self.waiting if not r.cancelled)
+
+    def headroom(self) -> dict:
+        """Admission-control snapshot: free KV pages and decode slots,
+        queue depth, and the decode tokens-in-flight signal."""
+        return {"free_pages": len(self.free_pages),
+                "free_slots": sum(r is None for r in self.slot_req),
+                "waiting": len(self.waiting),
+                "tokens_in_flight": self.tokens_in_flight(),
+                "n_pages": self.n_pages, "page_size": self.PS,
+                "max_batch": self.B, "kv_dtype": self.kv_dtype}
+
+    async def stream(self, req_id: int):
+        """Async iterator of generated token ids for one request. Raises
+        if the engine died before the request finished. The request stays
+        registered until its consumer drains the terminal None here."""
+        req = self._reqs.get(req_id)
+        if req is None:
+            req = self._done[req_id]
+        try:
+            while True:
+                item = await req.out.get()
+                if item is None:
+                    if self.error is not None and not req.finished:
+                        raise RuntimeError("engine loop died") from self.error
+                    break
+                yield item
+        finally:
+            # only unregister finished requests: a consumer erroring out
+            # mid-stream must not make cancel() a no-op on a live request
+            self._done.pop(req_id, None)
+
+    async def stream_blocks(self, req_id: int):
+        """Block-coalesced stream: lists of token ids, one per wake.
+        ``_emit_block`` pushes a whole decode block's tokens in one
+        synchronous burst, so draining the queue greedily after the first
+        await yields one delta per block — token-identical to stream()."""
+        req = self._reqs.get(req_id)
+        if req is None:
+            req = self._done[req_id]
+        try:
+            while True:
+                item = await req.out.get()
+                if item is None:
+                    if self.error is not None and not req.finished:
+                        raise RuntimeError("engine loop died") from self.error
+                    return
+                blk = [item]
+                while True:
+                    try:
+                        nxt = req.out.get_nowait()
+                    except asyncio.QueueEmpty:
+                        break
+                    if nxt is None:
+                        # terminal already queued behind the block
+                        yield blk
+                        if self.error is not None and not req.finished:
+                            raise RuntimeError(
+                                "engine loop died") from self.error
+                        return
+                    blk.append(nxt)
+                yield blk
+        finally:
+            self._done.pop(req_id, None)
+
+    async def generate(self, prompt_tokens: list[int], **kw) -> list[int]:
+        rid = self.submit(prompt_tokens, **kw)
+        out: list[int] = []
+        async for blk in self.stream_blocks(rid):
+            out.extend(blk)
+        return out
+
+    def cancel(self, req_id: int):
+        req = self._reqs.get(req_id)
+        if req is not None:
+            req.cancelled = True
+            self._wake.set()
+
+    # ------------------------------------------------------------ internals
+    def _alloc_pages(self, n: int) -> list[int] | None:
+        if len(self.free_pages) < n:
+            return None
+        out = self.free_pages[:n]
+        del self.free_pages[:n]
+        return out
+
+    def _release_slot(self, slot: int):
+        """Free a slot's pages (every page allocated at admission, not only
+        the ones reached) and reset its host state."""
+        self.slot_req[slot] = None
+        self.free_pages.extend(int(p) for p in self.page_tables[slot] if p != 0)
+        self.page_tables[slot, :] = 0
+        self.seq_lens[slot] = 0
+
+    def _free_slot(self, slot: int):
+        req = self.slot_req[slot]
+        self._release_slot(slot)
+        if req is not None:
+            self._finish_stream(req)
+
+    def _finish_stream(self, req: _Request) -> None:
+        """Unregister a request and close its token stream: live -> the
+        bounded finished-awaiting-drain map."""
+        self._reqs.pop(req.req_id, None)
+        self._done[req.req_id] = req
+        while len(self._done) > self._done_cap:
+            self._done.popitem(last=False)
+        req.out.put_nowait(None)
+
+    def _reserve_slot(self, req: _Request) -> int | None:
+        """Claim a slot + pages for one waiting request (host bookkeeping
+        only; the prefill itself is dispatched per wave)."""
+        slot = next((i for i, r in enumerate(self.slot_req) if r is None), -1)
+        if slot < 0:
+            return None
+        Tp = len(req.prompt)
+        n_need = -(-(Tp + req.max_tokens) // self.PS)
+        pages = self._alloc_pages(n_need)
+        if pages is None:
+            return None
+        req.slot = slot
+        self.slot_req[slot] = req
+        self.page_tables[slot, :] = 0
+        self.page_tables[slot, :n_need] = pages
+        self.seq_lens[slot] = Tp
+        self.temps[slot] = req.temperature
+        self.aids[slot] = req.adapter
+        return slot
+
+    _WAVE_BUCKETS = (1, 2, 4, 8, 16)
+
+    def _admit_wave(self) -> bool:
+        """Admit every waiting request that fits and emit each one's first
+        token (one host sync per pad-bucket group). Returns True if
+        anything was admitted."""
+        groups = self._admit_dispatch()
+        for reqs, first in groups:
+            first = first.cpu().numpy()
+            for j, req in enumerate(reqs):
+                self.next_tok[req.slot] = int(first[j])
+                self._emit(req, int(first[j]))
+        return bool(groups)
+
+    def _admit_dispatch(self) -> list[tuple[list[_Request], torch.Tensor]]:
+        """Reserve slots and DISPATCH batched prefills for every waiting
+        request that fits; no host sync — returns [(requests, first-token
+        device tensor)] per pad-bucket group."""
+        groups: dict[int, list[_Request]] = {}
+        while self.waiting:
+            nxt = self.waiting[0]
+            if nxt.cancelled:
+                self.waiting.pop(0)
+                self._finish_stream(nxt)
+                continue
+            if self._reserve_slot(nxt) is None:
+                break
+            self.waiting.pop(0)
+            Tp_pad = -(-len(nxt.prompt) // self.PS) * self.PS
+            groups.setdefault(Tp_pad, []).append(nxt)
+        out = []
+        for Tp_pad, reqs in groups.items():
+            npages = Tp_pad // self.PS
+            nb = next(b for b in self._WAVE_BUCKETS if b >= len(reqs)) \
+                if len(reqs) <= self._WAVE_BUCKETS[-1] else len(reqs)
+            toks = np.zeros((nb, Tp_pad), np.int64)
+            pages = np.zeros((nb, npages), np.int64)  # dummy rows: junk page
+            aids = np.zeros(nb, np.int64)
+            true_lens = np.ones(nb, np.int64)
+            temps = np.zeros(nb, np.float32)
+            for j, req in enumerate(reqs):
+                toks[j, :len(req.prompt)] = req.prompt
+                pages[j] = self.page_tables[req.slot, :npages]
+                aids[j] = req.adapter
+                true_lens[j] = len(req.prompt)
+                temps[j] = req.temperature
+            first = paged_prefill_batch(
+                self.params, self.loras, self._h2d(aids), self._h2d(toks),
+                self._h2d(pages), self.kpool, self.vpool, self._h2d(true_lens),
+                self._h2d(temps), self._gen, self.cfg,
+                sample=bool((temps > 0).any()))
+            out.append((reqs, first))
+        return out
+
+    def _emit(self, req: _Request, tok: int):
+        req.emitted += 1
+        self.tokens_out += 1
+        req.out.put_nowait(tok)
+        if req.emitted >= req.max_tokens or (
+                self.eos_id is not None and tok == self.eos_id):
+            req.finished = True
+            req.cancelled = True  # finished: reclaim on the next sweep
+            if req.slot < 0:
+                # planned mode already retired the slot; close the stream
+                self._finish_stream(req)
+
+    async def _loop(self):
+        """Engine driver. Any exception here is fatal for the engine:
+        record it, fail every live stream, and exit."""
+        try:
+            if self.eos_id is None:
+                await self._loop_planned()
+            else:
+                await self._loop_reactive()
+        except Exception as e:  # noqa: BLE001 — the loop's boundary
+            self.error = e
+            self._running = False
+            self._terminate_all_streams()
+            import traceback
+
+            traceback.print_exc()
+
+    @staticmethod
+    def _ramp(emitted: int) -> int:
+        # per-request fusion ramp: fresh requests decode in small blocks
+        # (first-token latency, bounded admission latency for newcomers),
+        # deep ones amortize dispatch with bigger ones; the 64 bucket is
+        # reserved for full batches
+        if emitted < 8:
+            return 8
+        if emitted < 24:
+            return 16
+        return 32
+
+    def _pick_block(self, planned: bool = False) -> int:
+        """Fused-steps bucket for this dispatch: the smallest bucket
+        covering every active request's ramp, each capped by its exact
+        remaining count, so a request about to finish caps the block and
+        frees its slot for waiting admissions. At high occupancy the ramp
+        is skipped. ``planned`` counts dispatch-scheduled tokens instead
+        of emitted ones."""
+        live = [r for r in self.slot_req
+                if r is not None and not r.cancelled]
+        if not live:
+            return 1
+
+        def done_count(r):
+            return r.planned if planned else r.emitted
+
+        if 2 * len(live) >= self.B:
+            want = min(r.max_tokens - done_count(r) for r in live)
+        else:
+            want = min(min(self._ramp(done_count(r)),
+                           r.max_tokens - done_count(r)) for r in live)
+        want = max(1, want)
+        for b in self.block_buckets:
+            if want <= b:
+                return b
+        return self.block_buckets[-1]
+
+    def _emit_block(self, entry) -> None:
+        """Host-side emission of one synced decode block."""
+        K, toks, slot_snapshot = entry
+        toks = toks.numpy()  # [K, B]; waits for this block only
+        self.steps += K
+        for i, req in enumerate(slot_snapshot):
+            if req is None:
+                continue
+            if self.slot_req[i] is req:
+                # planned mode may have retired + re-admitted this slot
+                # while the block was in flight; host per-slot state then
+                # belongs to the newcomer
+                self.seq_lens[i] += K
+            for k in range(K):
+                if req.cancelled:
+                    break  # finished/cancelled mid-block: discard rest
+                tok = int(toks[k, i])
+                if self.slot_req[i] is req:
+                    self.next_tok[i] = tok
+                self._emit(req, tok)
+
+    def _dispatch_block(self, K: int, carry):
+        """Queue one decode block of K steps; returns (toks copy, carry)."""
+        if carry is None:
+            carry = (self._h2d(self.next_tok), self._h2d(self.seq_lens))
+        tok_d, lens_d = carry
+        active = np.array([r is not None for r in self.slot_req])
+        toks, tok_d, lens_d = paged_decode_multi(
+            self.params, self.loras, self._h2d(self.aids), tok_d, lens_d,
+            self._h2d(self.page_tables), self.kpool, self.vpool,
+            self._h2d(active), self._h2d(self.temps), self._gen, self.cfg, K,
+            sample=bool((self.temps[active] > 0).any()))
+        return _HostCopy(toks), (tok_d, lens_d)
+
+    async def _loop_planned(self):
+        """Fully pipelined driver for length-deterministic generation (no
+        EOS): every request's completion step is known at dispatch time,
+        so slots are retired and re-admitted ON SCHEDULE without draining
+        the pipeline — prefills, carry merges and decode blocks queue
+        back to back, and the only host syncs are the trailing token
+        emissions riding two blocks behind."""
+        pending: list = []  # dispatch-ordered: ("prefill",...)|("block",...)
+        carry = None
+
+        def sync_oldest():
+            kind, *rest = pending.pop(0)
+            if kind == "prefill":
+                reqs, first = rest
+                first = first.numpy()
+                for j, req in enumerate(reqs):
+                    if not req.cancelled:  # user-cancelled: stream closed
+                        self._emit(req, int(first[j]))
+            else:
+                self._emit_block(rest)
+
+        while self._running:
+            # retire slots whose scheduled tokens are all dispatched; their
+            # in-flight junk writes are queued BEFORE any new prefill on the
+            # same stream, so immediate page reuse is safe
+            for i, req in enumerate(self.slot_req):
+                if req is not None and (req.planned >= req.max_tokens
+                                        or req.cancelled):
+                    req.slot = -1  # emission closes the stream at finish
+                    self._release_slot(i)
+                    if req.cancelled and not req.finished:
+                        # user-cancelled: no finish emission will ever
+                        # close this stream — close it here
+                        self._finish_stream(req)
+            if self.waiting and any(r is None for r in self.slot_req):
+                groups = self._admit_dispatch()
+                if groups:
+                    if carry is None:
+                        carry = (self._h2d(self.next_tok),
+                                 self._h2d(self.seq_lens))
+                    tok_d, lens_d = carry
+                    for reqs, first in groups:
+                        tok_d, lens_d = _merge_carry(
+                            tok_d, lens_d, self._h2d([r.slot for r in reqs]),
+                            first, self._h2d([len(r.prompt) for r in reqs]))
+                        for r in reqs:
+                            r.planned = 1
+                        pending.append(("prefill", reqs, _HostCopy(first)))
+                    carry = (tok_d, lens_d)
+            live = [r for r in self.slot_req if r is not None]
+            if not live:
+                while pending:
+                    sync_oldest()
+                    # yield between blocks: consumers must observe tokens
+                    # in emission order, not one burst after the drain
+                    await asyncio.sleep(0)
+                carry = None
+                self._wake.clear()
+                try:
+                    await asyncio.wait_for(self._wake.wait(), timeout=1.0)
+                except asyncio.TimeoutError:
+                    pass
+                continue
+            # pace dispatch to emission + 2 entries: enough run-ahead to
+            # hide the dispatch under device compute, little enough that a
+            # newly arriving request interleaves within a couple of blocks
+            while len(pending) >= 2:
+                sync_oldest()
+                await asyncio.sleep(0)
+            K = self._pick_block(planned=True)
+            toks, carry = self._dispatch_block(K, carry)
+            for r in live:
+                r.planned = min(r.max_tokens, r.planned + K)
+            pending.append(("block", K, toks, list(self.slot_req)))
+            await asyncio.sleep(0)
+
+    async def _loop_reactive(self):
+        """Driver with an EOS: completion is known only from the tokens.
+        Blocks pipeline 2 deep with the (tok, pos) carry chained on the
+        device; it is rebuilt from host state after the pipeline drains at
+        admission points (a new slot changes the page tables)."""
+        pending: list = []
+        carry = None  # (tok_dev, lens_dev) device-resident between blocks
+
+        def drain():
+            while pending:
+                self._emit_block(pending.pop(0))
+
+        while self._running:
+            for i, req in enumerate(self.slot_req):
+                if req is not None and req.cancelled and req.slot >= 0:
+                    if pending:
+                        break  # free only with no block in flight
+                    self._free_slot(i)
+            if self.waiting and any(r is None for r in self.slot_req):
+                drain()  # admission changes device-visible state
+                for i, req in enumerate(self.slot_req):
+                    if req is not None and req.cancelled:
+                        self._free_slot(i)
+                if self._admit_wave():
+                    carry = None
+                    # let consumers flush the prefill tokens before the
+                    # next decode dispatch occupies the loop thread
+                    await asyncio.sleep(0)
+            if not any(r is not None for r in self.slot_req):
+                drain()
+                # idle, OR the head-of-queue request can't be admitted yet:
+                # either way yield, never spin
+                self._wake.clear()
+                try:
+                    await asyncio.wait_for(self._wake.wait(), timeout=1.0)
+                except asyncio.TimeoutError:
+                    pass
+                continue
+            K = self._pick_block()
+            toks, carry = self._dispatch_block(K, carry)
+            pending.append((K, toks, list(self.slot_req)))
+            if len(pending) >= 2:
+                self._emit_block(pending.pop(0))
+            # a finished request must stop the pipeline at the next
+            # admission point rather than over-decoding forever
+            if any(r is not None and r.cancelled for r in self.slot_req):
+                drain()
+                carry = None
+            await asyncio.sleep(0)
