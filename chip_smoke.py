@@ -7,7 +7,9 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
 
 1. build    — compile every hand-written kernel with nvcc (in parallel).
 2. kernels  — each kernel's wrapper against its plain PyTorch version on the
-              card, at small shapes and at the main path's shape, with times.
+              card, at small shapes and at the main path's shape, with times:
+              the flash forward, and the backward pair (dq; dk/dv) against
+              flash_attention_backward_plain.
 3. forward  — Llama-3-8B width (32 layers, bf16, random weights from a seed):
               tokens [2, 2048] through llama_forward(attn_impl="auto") and
               llama_loss; the flash kernel must launch once per layer; logits
@@ -17,6 +19,15 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               requests in the planned loop (eos_id None) and the reactive loop
               (an eos_id); in float32 at 2 layers its greedy tokens must equal
               generate()'s exactly.
+5. train    — with the earlier weights and pools freed: Llama-3-8B width cut
+              to 8 layers, bf16, remat on, tokens [2, 2049]; one step's
+              gradients with attn_impl="auto" against "plain" (loss within
+              3e-2, flattened gradient relative L2 <= 3e-2), then
+              make_train_step with AdamW (lr 1e-4): one warm-up step and 5
+              timed steps, each launching the flash forward, dq and dk/dv
+              kernels once per layer (8/8/8), the loss finite and falling;
+              and a 2-layer float32 model at full width, T=2048, whose
+              per-leaf gradients agree with plain attention (<= 1e-3).
 
 Then the {"kernels": [...]} line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -78,10 +89,30 @@ def attention_bound_ms(B, T, Tk, H, D, itemsize, causal) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def tree_numel(tree) -> int:
+def backward_bound_ms(B, T, Tk, H, D, itemsize, causal, products) -> tuple[float, str]:
+    """Least time for one backward kernel's work on an H100: ``products``
+    matrix products (dq: 3, dk/dv: 4) over the kept (row, key) pairs, against
+    q, k, v, dO and lse/delta read once and the kernel's outputs (dq: one
+    [B, T, H, D]; dk/dv: two [B, Tk, H, D]) written once."""
+    pairs = sum(min(r + 1, Tk) for r in range(T)) if causal else T * Tk
+    ops = 2 * products * B * H * D * pairs
+    peak = H100_BF16_FLOPS if itemsize == 2 else H100_F32_FLOPS
+    outs = B * T * H * D if products == 3 else 2 * B * Tk * H * D
+    nbytes = (2 * B * T * H * D + 2 * B * Tk * H * D + outs) * itemsize + 2 * 4 * B * H * T
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def leaves(tree):
     if isinstance(tree, dict):
-        return sum(tree_numel(v) for v in tree.values())
-    return tree.numel()
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def tree_numel(tree) -> int:
+    return sum(t.numel() for t in leaves(tree))
 
 
 def rel_l2(a, b) -> float:
@@ -151,6 +182,86 @@ def phase_kernels(card: str) -> dict:
     emit(timing)
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_backward_kernels(card: str) -> dict:
+    """The dq and dk/dv kernels against flash_attention_backward_plain on
+    the forward's shape set, then their times at the main shape. Bounds
+    (the JAX package's): float32 |d - plain| <= 5e-5 + 5e-4 |plain|; bf16
+    inputs against the plain version on their float32 upcasts
+    <= 5e-2 + 5e-2 |plain|."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_backward_plain, flash_attention_delta,
+        flash_attention_forward, launch_bwd_dkv, launch_bwd_dq)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    tol = {torch.float32: (5e-5, 5e-4), torch.bfloat16: (5e-2, 5e-2)}
+    cases = [(B, T, Tk, H, D, dtype, causal)
+             for dtype in (torch.float32, torch.bfloat16) for causal in (True, False)
+             for (B, T, Tk, H, D) in ((2, 256, 256, 4, 64), (1, 384, 640, 3, 128),
+                                      (1, 640, 384, 2, 128), (1, 200, 200, 2, 256))]
+    main = (2, 2048, 2048, 32, 128, torch.bfloat16, True)
+    cases.append(main)
+    main_err = {}
+    for (B, T, Tk, H, D, dtype, causal) in cases:
+        q = torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype)
+        k = torch.randn((B, Tk, H, D), generator=g, device="cuda").to(dtype)
+        v = torch.randn((B, Tk, H, D), generator=g, device="cuda").to(dtype)
+        do = torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype)
+        out, lse = flash_attention_forward(q, k, v, causal=causal)
+        got = flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+        want = flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(),
+                                              lse, do.float(), causal=causal,
+                                              sm_scale=D ** -0.5)
+        torch.cuda.synchronize()
+        atol, rtol = tol[dtype]
+        errs, ok = {}, True
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            diff = (a.float() - b).abs()
+            errs[name] = float(diff.max())
+            ok = ok and bool((diff <= atol + rtol * b.abs()).all())
+        row = {"phase": "kernel_check", "kernel": "flash_attention_bwd_dq+dkv", "B": B,
+               "T": T, "Tk": Tk, "H": H, "D": D, "dtype": str(dtype).split(".")[1],
+               "causal": causal, "max_abs_err": errs, "atol": atol, "rtol": rtol,
+               "within": ok}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"flash backward disagrees with its plain version: {row}")
+        if (B, T, Tk, H, D, dtype, causal) == main:
+            main_err = errs
+            main_args = (q, k, v, out, lse, do)
+        else:
+            del q, k, v, do, out, got, want
+    q, k, v, out, lse, do = main_args
+    B, T, Tk, H, D = main[:5]
+    kw = dict(causal=True, sm_scale=D ** -0.5)
+    delta = flash_attention_delta(out, do)
+    dq_ms = cuda_ms(lambda: launch_bwd_dq(q, k, v, do, lse, delta, **kw))
+    dkv_ms = cuda_ms(lambda: launch_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    # the plain version computes the pair (its p and ds are shared)
+    plain_ms = cuda_ms(lambda: flash_attention_backward_plain(q, k, v, out, lse, do, **kw),
+                       iters=3)
+    # yardstick: SDPA's backward alone (the forward outside the timed region);
+    # one call computes dq, dk and dv together, so it is recorded for the pair
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), do.transpose(1, 2),
+                                                     retain_graph=True))
+    res = {}
+    for name, ms, products, err in (
+            ("flash_attention_bwd_dq", dq_ms, 3, {"dq": main_err["dq"]}),
+            ("flash_attention_bwd_dkv", dkv_ms, 4,
+             {"dk": main_err["dk"], "dv": main_err["dv"]})):
+        bound_ms, bound_by = backward_bound_ms(B, T, Tk, H, D, 2, True, products)
+        res[name] = {"max_abs_err": max(err.values()), "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        emit({"phase": "kernel_time", "kernel": name, "shape": [B, T, H, D],
+              "dtype": "bfloat16", "causal": True, **res[name],
+              "plain_and_library_cover": "dq+dkv", "card": card})
+    return res
 
 
 def timed(fn):
@@ -294,6 +405,150 @@ def phase_serving(card: str, kernels, cfg, params, cfg32, params32) -> dict:
     return serve_launches
 
 
+def profile_step(fn, card: str) -> dict:
+    """One call of ``fn`` under torch.profiler: device time by kernel group
+    (flash kernels, matrix products, the rest), the top kernels, and the
+    device's busy and idle share of the host-clock wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall_ms = timed(fn)
+    kern = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        # user annotations (Optimizer.step#...) span kernels: not kernels themselves
+        if (us > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            kern.append((e.key, us / 1e3, e.count))
+    kern.sort(key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in kern)
+    groups = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, ms, _ in kern:
+        low = name.lower()
+        grp = ("flash" if "flash_" in low and "kernel" in low else
+               "matmul" if any(w in low for w in ("gemm", "nvjet", "cutlass", "sm90_xmma"))
+               else "other")
+        groups[grp] += ms
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "group_ms": groups, "top": [[n[:80], ms, c] for n, ms, c in kern[:12]],
+            "card": card}
+
+
+def grads(params, cfg, batch, attn_impl):
+    """(loss, gradients of every leaf) of one forward and backward."""
+    import torch
+
+    from ray_tpu_torch.models.llama import llama_loss
+
+    ts = list(leaves(params))
+    loss = llama_loss(params, batch, cfg, attn_impl=attn_impl)
+    return loss.detach(), torch.autograd.grad(loss, ts)
+
+
+def phase_train(card: str, kernels, k: dict) -> dict:
+    """make_train_step at Llama-3-8B width cut to 8 layers. Returns the
+    kernel launches of the 5 timed steps."""
+    import statistics
+
+    import torch
+
+    from ray_tpu_torch.models.llama import AdamW, LlamaConfig, llama_init, make_train_step
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=8)  # remat on, bf16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    params = llama_init(g, cfg, "cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 2049), generator=g,
+                                     device="cuda")}
+    opt = AdamW(1e-4)  # optax.adamw's defaults otherwise, passed explicitly
+    state = opt.init(params)
+
+    # one step's gradients, flash kernels against plain attention, same weights
+    loss_a, ga = grads(params, cfg, batch, "auto")
+    loss_p, gp = grads(params, cfg, batch, "plain")
+    num = sum(float(((a.float() - b.float()) ** 2).sum()) for a, b in zip(ga, gp))
+    den = sum(float((b.float() ** 2).sum()) for b in gp)
+    grad_rel = math.sqrt(num / den)
+    del ga, gp
+    emit({"phase": "train_grads", "layers": cfg.n_layers, "dtype": cfg.dtype,
+          "loss_auto": float(loss_a), "loss_plain": float(loss_p),
+          "grad_rel_l2_vs_plain": grad_rel, "tol": 3e-2})
+    if not (abs(float(loss_a) - float(loss_p)) <= 3e-2 and grad_rel <= 3e-2):
+        raise AssertionError(f"bf16 gradients disagree with plain attention: {grad_rel}")
+
+    step = make_train_step(cfg, opt, attn_impl="auto")
+    params, state, loss = step(params, state, batch)  # warm-up
+    losses, step_ms, per_step = [float(loss)], [], []
+    torch.cuda.reset_peak_memory_stats()
+    kernels.LAUNCHES.clear()  # the main path starts here
+    for _ in range(5):
+        before = dict(kernels.LAUNCHES)
+        (params, state, loss), ms = timed(lambda: step(params, state, batch))
+        per_step.append({n: kernels.LAUNCHES[n] - before.get(n, 0) for n in kernels.KERNELS})
+        losses.append(float(loss))
+        step_ms.append(ms)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: cfg.n_layers for n in kernels.KERNELS}
+    if any(c != want for c in per_step):
+        raise AssertionError(f"kernel launches per step {per_step}, want {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}")
+
+    tokens = batch["tokens"][:, :-1].numel()
+    B, T = batch["tokens"].shape[0], batch["tokens"].shape[1] - 1
+    H, D = cfg.n_heads, cfg.head_dim
+    pairs = T * (T + 1) // 2
+    n_dense = tree_numel(params) - params["tok"]["embedding"].numel()
+    # forward 2 products, dq 3, dk/dv 4 (two operations each) per kept pair
+    attn_ops = cfg.n_layers * 2 * (2 + 3 + 4) * B * H * D * pairs
+    bound_ms = (6 * n_dense * tokens + attn_ops) / H100_BF16_FLOPS * 1e3
+    med = statistics.median(step_ms)
+    flash_ms = cfg.n_layers * (k["flash_attention_fwd"]["ms"]
+                               + k["flash_attention_bwd_dq"]["ms"]
+                               + k["flash_attention_bwd_dkv"]["ms"])
+    profile = profile_step(lambda: step(params, state, batch), card)
+
+    # the cost of the remat names: each is a copy (a custom op may not return
+    # its input); per layer q, k, v, the attention output and gate/up
+    from ray_tpu_torch.ops.remat import NAME_OP
+
+    shapes = [(B, T, H, D), (B, T, cfg.n_kv_heads, D), (B, T, cfg.n_kv_heads, D),
+              (B, T, H, D), (B, T, cfg.d_ff), (B, T, cfg.d_ff)]
+    named = [torch.randn(sh, generator=g, device="cuda").to(cfg.torch_dtype) for sh in shapes]
+    copy_ms = cfg.n_layers * cuda_ms(lambda: [NAME_OP(x, "attn_qkv") for x in named])
+    copy_bytes = cfg.n_layers * 2 * sum(x.numel() * x.element_size() for x in named)
+    emit({"phase": "train", "config": "llama3_8b", "layers": cfg.n_layers,
+          "dtype": cfg.dtype, "remat": cfg.remat, "tokens": [B, T + 1],
+          "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+          "step_ms_spread": max(step_ms) - min(step_ms), "tokens_per_s": tokens / med * 1e3,
+          "bound_ms": bound_ms, "bound_share": bound_ms / med,
+          "max_memory_allocated": peak, "launches_per_step": per_step[0],
+          "flash_kernels_ms": flash_ms, "flash_share": flash_ms / med,
+          "name_copies_ms": copy_ms, "name_copy_bytes": copy_bytes, "card": card})
+    emit({"phase": "train_profile", **profile})
+    del params, state, opt, step, batch, loss, named
+    torch.cuda.empty_cache()
+
+    # float32, 2 layers at full width: per-leaf gradients against plain attention
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    params32 = llama_init(g, cfg32, "cuda")
+    for t in leaves(params32):
+        t.requires_grad_(True)
+    batch32 = {"tokens": torch.randint(0, cfg.vocab_size, (2, 2049), generator=g,
+                                       device="cuda")}
+    _, ga = grads(params32, cfg32, batch32, "auto")
+    _, gp = grads(params32, cfg32, batch32, "plain")
+    worst = max(float((a - b).norm() / b.norm()) for a, b in zip(ga, gp))
+    emit({"phase": "train_grads_f32", "layers": 2, "worst_leaf_rel_l2_vs_plain": worst,
+          "tol": 1e-3})
+    if not worst <= 1e-3:
+        raise AssertionError(f"f32 gradients disagree with plain attention: {worst}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -317,7 +572,7 @@ def main() -> int:
     secs = kernels.build()
     emit({"phase": "build", "nvcc_seconds": secs, "seconds": time.perf_counter() - t0})
 
-    k = phase_kernels(card)
+    k = {"flash_attention_fwd": phase_kernels(card), **phase_backward_kernels(card)}
 
     cfg = LlamaConfig.llama3_8b()
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -327,15 +582,25 @@ def main() -> int:
     tokens = torch.randint(0, cfg.vocab_size, (2, 2049), generator=g, device="cuda")
     launches, cfg32, params32 = phase_forward(card, kernels, cfg, params, tokens)
     serve_launches = phase_serving(card, kernels, cfg, params, cfg32, params32)
+    del params, params32, tokens
+    torch.cuda.empty_cache()
+    train_launches = phase_train(card, kernels, k)
 
-    emit({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "ray_tpu/ops/flash_attention.py:49",
-        "launches": launches, "serving_launches": serve_launches.get("flash_attention_fwd", 0),
-        "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-        "library_ms": k["library_ms"]}]})
+    replaces = {"flash_attention_fwd": "ray_tpu/ops/flash_attention.py:49",
+                "flash_attention_bwd_dq": "ray_tpu/ops/flash_attention.py:144",
+                "flash_attention_bwd_dkv": "ray_tpu/ops/flash_attention.py:191"}
+    rows = []
+    for name in kernels.KERNELS:
+        row = {"name": name, "route": "cuda", "source": f"ray_tpu_torch/csrc/{name}.cu",
+               "replaces": replaces[name],
+               # the forward's main path is the forward phase; the backward's, training
+               "launches": launches if name == "flash_attention_fwd" else train_launches[name],
+               "train_launches": train_launches[name],
+               "serving_launches": serve_launches.get(name, 0), **k[name]}
+        if name != "flash_attention_fwd":
+            row["plain_and_library_cover"] = "dq+dkv"
+        rows.append(row)
+    emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,14 +1,15 @@
 """Flagship model: Llama-family decoder-only transformer in PyTorch.
 
-Counterpart of ``ray_tpu/models/llama.py`` (dense path, forward only).
-Parameters are the same nested dict as the JAX pytree
+Counterpart of ``ray_tpu/models/llama.py`` (dense path: forward, loss and
+``make_train_step``). Parameters are the same nested dict as the JAX pytree
 (``params["layers_{i}"]["wq"]["kernel"]``, ...), kernels stored
 [d_in, d_out] so every projection is ``x @ w``; the embedding and
 ``lm_head`` are separate, not tied. Attention dispatches through
-``ops.attention`` exactly as the JAX forward does.
+``ops.attention`` exactly as the JAX forward does. With ``cfg.remat`` each
+block runs under JAX's selective-remat policy (``ops/remat.py``).
 
-Not in this slice (ROADMAP, PyTorch/CUDA port): MoE layers, the pipelined
-and tensor-parallel variants, and ``make_train_step``.
+Not in this slice (ROADMAP, PyTorch/CUDA port): MoE layers and the
+pipelined and tensor-parallel variants.
 """
 from __future__ import annotations
 
@@ -16,9 +17,11 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.basic import rms_norm, rope, rope_freqs, swiglu
+from ray_tpu_torch.ops.remat import checkpoint_name, save_only_these_names
 from ray_tpu_torch.utils.device import resolve_device
 
 
@@ -139,13 +142,32 @@ def _block(layer, x, cos, sin, cfg: LlamaConfig, attn_impl):
     q = (h @ layer["wq"]["kernel"]).reshape(B, T, cfg.n_heads, hd)
     k = (h @ layer["wk"]["kernel"]).reshape(B, T, cfg.n_kv_heads, hd)
     v = (h @ layer["wv"]["kernel"]).reshape(B, T, cfg.n_kv_heads, hd)
-    q = rope(q, cos, sin)
-    k = rope(k, cos, sin)
-    att = attention(q, k, v, causal=True, impl=attn_impl)
+    # named for the remat policy: the flash backward consumes q/k/v, and
+    # the saved attention output spares the O(T^2) forward's recompute
+    q = checkpoint_name(rope(q, cos, sin), "attn_qkv")
+    k = checkpoint_name(rope(k, cos, sin), "attn_qkv")
+    v = checkpoint_name(v, "attn_qkv")
+    att = checkpoint_name(attention(q, k, v, causal=True, impl=attn_impl), "attn_out")
     x = x + att.reshape(B, T, cfg.n_heads * hd) @ layer["wo"]["kernel"]
     h = rms_norm(x, layer["ffn_norm"]["scale"])
     return x + swiglu(h, layer["w_gate"]["kernel"], layer["w_up"]["kernel"],
                       layer["w_down"]["kernel"])
+
+
+def _maybe_remat_block(cfg: LlamaConfig):
+    """JAX's selective remat: with ``cfg.remat`` (and autograd on) each block
+    runs under a non-reentrant ``checkpoint`` that saves the post-rope
+    q/k/v, the attention output (with the flash forward's out and lse) and
+    the FFN gate/up products, and recomputes the rest in the backward."""
+    if not cfg.remat or not torch.is_grad_enabled():
+        return _block
+    context_fn = save_only_these_names("attn_out", "attn_qkv", "ffn_hidden")
+
+    def block(layer, x, cos, sin, cfg, attn_impl):
+        return checkpoint(_block, layer, x, cos, sin, cfg, attn_impl,
+                          use_reentrant=False, context_fn=context_fn)
+
+    return block
 
 
 def _ce_loss(logits, targets):
@@ -169,16 +191,74 @@ def llama_forward(params, tokens, cfg: LlamaConfig, *, mesh=None,
     cos, sin = rope_freqs(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                           device=emb.device)
     x = emb[tokens]
+    block = _maybe_remat_block(cfg)
     for i in range(cfg.n_layers):
-        x = _block(params[f"layers_{i}"], x, cos, sin, cfg, attn_impl)
+        x = block(params[f"layers_{i}"], x, cos, sin, cfg, attn_impl)
     x = rms_norm(x, params["norm"]["scale"])
     return x @ params["lm_head"]["kernel"], 0.0
 
 
 def llama_loss(params, batch, cfg: LlamaConfig, *, mesh=None, attn_impl="auto"):
-    """Next-token cross entropy; batch: {"tokens": [B, T+1]}. Forward only
-    in this slice."""
+    """Next-token cross entropy; batch: {"tokens": [B, T+1]}."""
     tokens = torch.as_tensor(batch["tokens"], device=params["tok"]["embedding"].device)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     logits, aux = llama_forward(params, inputs, cfg, mesh=mesh, attn_impl=attn_impl)
     return _ce_loss(logits, targets) + 0.01 * aux
+
+
+class AdamW:
+    """The optax ``adamw`` transformation on ``torch.optim.AdamW``: the
+    optimizer is a library one in both packages (optax in JAX), not a
+    kernel. Every hyperparameter is passed to torch explicitly, with
+    optax's defaults (torch's ``weight_decay`` default is 1e-2, optax's
+    1e-4). Moments are kept in the parameter dtype, as optax does with
+    ``mu_dtype=None``."""
+
+    def __init__(self, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 1e-4):
+        self.hyper = dict(lr=learning_rate, betas=(b1, b2), eps=eps,
+                          weight_decay=weight_decay)
+
+    def init(self, params) -> torch.optim.AdamW:
+        """The optimizer state over the leaves of ``params``, which become
+        leaf tensors that require grad and are updated in place."""
+        leaves = list(_leaves(params))
+        for t in leaves:
+            t.requires_grad_(True)
+        return torch.optim.AdamW(leaves, **self.hyper)
+
+    @staticmethod
+    def update(opt_state: torch.optim.AdamW) -> None:
+        """Apply the gradients the backward pass left on the leaves."""
+        opt_state.step()
+        opt_state.zero_grad(set_to_none=True)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for val in tree.values():
+            yield from _leaves(val)
+    else:
+        yield tree
+
+
+def make_train_step(cfg: LlamaConfig, optimizer: AdamW, *, mesh=None,
+                    attn_impl: str = "auto"):
+    """Returns step(params, opt_state, batch) -> (params, opt_state, loss),
+    the call shape of the JAX ``make_train_step``; ``opt_state`` is
+    ``optimizer.init(params)``. The update is made in place, the
+    counterpart of donating params and opt_state: the returned params and
+    opt_state are the objects passed in."""
+    _check_dense(cfg)
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded training waits for the parallel slice (ROADMAP, "
+            "PyTorch/CUDA port: MoE and the parallel variants)")
+
+    def step(params, opt_state, batch):
+        loss = llama_loss(params, batch, cfg, attn_impl=attn_impl)
+        loss.backward()
+        optimizer.update(opt_state)
+        return params, opt_state, loss.detach()
+
+    return step

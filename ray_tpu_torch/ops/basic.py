@@ -8,6 +8,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch.ops.remat import checkpoint_name
+
 
 def matmul(a, b):
     """``a @ b`` with JAX's dtype promotion: mixed operands (a float32
@@ -52,5 +54,10 @@ def rope(x, cos, sin, positions=None):
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    """SwiGLU FFN: (silu(x@Wg) * (x@Wu)) @ Wd."""
-    return matmul(F.silu(matmul(x, w_gate)) * matmul(x, w_up), w_down)
+    """SwiGLU FFN: (silu(x@Wg) * (x@Wu)) @ Wd.
+
+    The gate/up products are named ``"ffn_hidden"`` for the remat policy,
+    as in the JAX package."""
+    gate = checkpoint_name(matmul(x, w_gate), "ffn_hidden")
+    up = checkpoint_name(matmul(x, w_up), "ffn_hidden")
+    return matmul(F.silu(gate) * up, w_down)

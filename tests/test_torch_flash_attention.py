@@ -81,11 +81,14 @@ def test_cpu_runs_plain_and_counts_no_launch():
     assert kernels.LAUNCHES[KERNEL] == before
 
 
-def test_requires_grad_raises():
+def test_requires_grad_gets_finite_grads_and_counts_no_launch():
+    before = dict(kernels.LAUNCHES)
     q, k, v = map(torch.tensor, _qkv(5, T=32))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash_attention(q, k, v)
+    out = flash_attention(q, k, v)
+    out.square().sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+    assert dict(kernels.LAUNCHES) == before
 
 
 def test_explicit_blocks_must_divide():
