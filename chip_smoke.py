@@ -5,11 +5,15 @@
 
 Phases, each printed as one JSON line; any failure raises and exits non-zero:
 
-1. build    — compile every hand-written kernel with nvcc (in parallel).
+1. build    — compile every hand-written kernel with nvcc (in parallel), and
+              print ptxas's report for each kernel instantiation: registers,
+              spill bytes, static and dynamic shared memory.
 2. kernels  — each kernel's wrapper against its plain PyTorch version on the
-              card, at small shapes and at the main path's shape, with times:
-              the flash forward, and the backward pair (dq; dk/dv) against
-              flash_attention_backward_plain.
+              card, at small shapes, ragged ones and the main path's shape,
+              with times, achieved TFLOP/s and share of the bound: the flash
+              forward, and the backward pair (dq; dk/dv) against
+              flash_attention_backward_plain (also at T != Tk at full width),
+              beside SDPA's backward and the delta pass.
 3. forward  — Llama-3-8B width (32 layers, bf16, random weights from a seed):
               tokens [2, 2048] through llama_forward(attn_impl="auto") and
               llama_loss; the flash kernel must launch once per layer; logits
@@ -77,30 +81,38 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(B, T, Tk, H, D, itemsize, causal) -> tuple[float, str]:
+def bound(ops, nbytes, itemsize) -> tuple[float, str, float]:
+    """(least ms on an H100, what bounds it, the operations): ``ops`` at the
+    type's peak against ``nbytes`` at the memory rate."""
+    peak = H100_BF16_FLOPS if itemsize == 2 else H100_F32_FLOPS
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return (t_ops, "operations", ops) if t_ops >= t_bytes else (t_bytes, "bytes", ops)
+
+
+def attention_bound_ms(B, T, Tk, H, D, itemsize, causal) -> tuple[float, str, float]:
     """Least time for the flash forward's work on an H100: the products over
     the (row, key) pairs this mask keeps, against each input read once and
     each output (out and the float32 lse) written once."""
     pairs = sum(min(r + 1, Tk) for r in range(T)) if causal else T * Tk
-    ops = 4 * B * H * D * pairs
-    peak = H100_BF16_FLOPS if itemsize == 2 else H100_F32_FLOPS
     nbytes = (2 * B * T * H * D + 2 * B * Tk * H * D) * itemsize + 4 * B * H * T
-    t_ops, t_bytes = ops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound(4 * B * H * D * pairs, nbytes, itemsize)
 
 
-def backward_bound_ms(B, T, Tk, H, D, itemsize, causal, products) -> tuple[float, str]:
+def backward_bound_ms(B, T, Tk, H, D, itemsize, causal,
+                      products) -> tuple[float, str, float]:
     """Least time for one backward kernel's work on an H100: ``products``
     matrix products (dq: 3, dk/dv: 4) over the kept (row, key) pairs, against
     q, k, v, dO and lse/delta read once and the kernel's outputs (dq: one
     [B, T, H, D]; dk/dv: two [B, Tk, H, D]) written once."""
     pairs = sum(min(r + 1, Tk) for r in range(T)) if causal else T * Tk
-    ops = 2 * products * B * H * D * pairs
-    peak = H100_BF16_FLOPS if itemsize == 2 else H100_F32_FLOPS
     outs = B * T * H * D if products == 3 else 2 * B * Tk * H * D
     nbytes = (2 * B * T * H * D + 2 * B * Tk * H * D + outs) * itemsize + 2 * 4 * B * H * T
-    t_ops, t_bytes = ops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound(2 * products * B * H * D * pairs, nbytes, itemsize)
+
+
+def rate(ms, bound_ms, ops) -> dict:
+    """Achieved TFLOP/s and share of the bound of a kernel that took ms."""
+    return {"tflops": ops / (ms * 1e-3) / 1e12, "bound_share": bound_ms / ms}
 
 
 def leaves(tree):
@@ -172,21 +184,21 @@ def phase_kernels(card: str) -> dict:
                        iters=5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    bound_ms, bound_by = attention_bound_ms(B, T, Tk, H, D, 2, True)
-    timing = {"phase": "kernel_time", "kernel": "flash_attention_fwd",
-              "shape": [B, T, H, D], "dtype": "bfloat16", "causal": True,
-              "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by,
-              "max_abs_err_f32": worst[torch.float32],
-              "max_abs_err_bf16": worst[torch.bfloat16], "card": card}
-    emit(timing)
-    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    bound_ms, bound_by, ops = attention_bound_ms(B, T, Tk, H, D, 2, True)
+    res = {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           **rate(ms, bound_ms, ops)}
+    emit({"phase": "kernel_time", "kernel": "flash_attention_fwd",
+          "shape": [B, T, H, D], "dtype": "bfloat16", "causal": True, **res,
+          "max_abs_err_f32": worst[torch.float32],
+          "max_abs_err_bf16": worst[torch.bfloat16], "card": card})
+    return res
 
 
 def phase_backward_kernels(card: str) -> dict:
     """The dq and dk/dv kernels against flash_attention_backward_plain on
-    the forward's shape set, then their times at the main shape. Bounds
+    the forward's shape set, ragged sequences (T not a multiple of any tile)
+    and T != Tk at full width, then their times at the main shape. Bounds
     (the JAX package's): float32 |d - plain| <= 5e-5 + 5e-4 |plain|; bf16
     inputs against the plain version on their float32 upcasts
     <= 5e-2 + 5e-2 |plain|."""
@@ -202,7 +214,11 @@ def phase_backward_kernels(card: str) -> dict:
     cases = [(B, T, Tk, H, D, dtype, causal)
              for dtype in (torch.float32, torch.bfloat16) for causal in (True, False)
              for (B, T, Tk, H, D) in ((2, 256, 256, 4, 64), (1, 384, 640, 3, 128),
-                                      (1, 640, 384, 2, 128), (1, 200, 200, 2, 256))]
+                                      (1, 640, 384, 2, 128), (1, 200, 200, 2, 256),
+                                      (2, 333, 333, 3, 128), (1, 333, 517, 2, 128),
+                                      (1, 517, 333, 2, 64))]
+    # T != Tk at the main width
+    cases += [(1, 1024, 2048, 32, 128, torch.bfloat16, causal) for causal in (True, False)]
     main = (2, 2048, 2048, 32, 128, torch.bfloat16, True)
     cases.append(main)
     main_err = {}
@@ -241,6 +257,8 @@ def phase_backward_kernels(card: str) -> dict:
     delta = flash_attention_delta(out, do)
     dq_ms = cuda_ms(lambda: launch_bwd_dq(q, k, v, do, lse, delta, **kw))
     dkv_ms = cuda_ms(lambda: launch_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    # the torch pass before the pair: SDPA's backward includes its own
+    delta_ms = cuda_ms(lambda: flash_attention_delta(out, do))
     # the plain version computes the pair (its p and ds are shared)
     plain_ms = cuda_ms(lambda: flash_attention_backward_plain(q, k, v, out, lse, do, **kw),
                        iters=3)
@@ -255,11 +273,13 @@ def phase_backward_kernels(card: str) -> dict:
             ("flash_attention_bwd_dq", dq_ms, 3, {"dq": main_err["dq"]}),
             ("flash_attention_bwd_dkv", dkv_ms, 4,
              {"dk": main_err["dk"], "dv": main_err["dv"]})):
-        bound_ms, bound_by = backward_bound_ms(B, T, Tk, H, D, 2, True, products)
+        bound_ms, bound_by, ops = backward_bound_ms(B, T, Tk, H, D, 2, True, products)
         res[name] = {"max_abs_err": max(err.values()), "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                     "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     **rate(ms, bound_ms, ops)}
         emit({"phase": "kernel_time", "kernel": name, "shape": [B, T, H, D],
-              "dtype": "bfloat16", "causal": True, **res[name],
+              "dtype": "bfloat16", "causal": True, **res[name], "delta_ms": delta_ms,
+              "pair_plus_delta_ms": dq_ms + dkv_ms + delta_ms,
               "plain_and_library_cover": "dq+dkv", "card": card})
     return res
 
@@ -407,8 +427,9 @@ def phase_serving(card: str, kernels, cfg, params, cfg32, params32) -> dict:
 
 def profile_step(fn, card: str) -> dict:
     """One call of ``fn`` under torch.profiler: device time by kernel group
-    (flash kernels, matrix products, the rest), the top kernels, and the
-    device's busy and idle share of the host-clock wall time."""
+    (flash kernels, matrix products, the rest), each flash kernel's time, the
+    top kernels, and the device's busy and idle share of the host-clock wall
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -425,15 +446,18 @@ def profile_step(fn, card: str) -> dict:
     kern.sort(key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in kern)
     groups = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
-    for name, ms, _ in kern:
+    flash = []
+    for name, ms, count in kern:
         low = name.lower()
         grp = ("flash" if "flash_" in low and "kernel" in low else
                "matmul" if any(w in low for w in ("gemm", "nvjet", "cutlass", "sm90_xmma"))
                else "other")
         groups[grp] += ms
+        if grp == "flash":
+            flash.append([name[:80], ms, count])
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
-            "group_ms": groups, "top": [[n[:80], ms, c] for n, ms, c in kern[:12]],
-            "card": card}
+            "group_ms": groups, "flash_kernels": flash,
+            "top": [[n[:80], ms, c] for n, ms, c in kern[:12]], "card": card}
 
 
 def grads(params, cfg, batch, attn_impl):
@@ -570,7 +594,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     secs = kernels.build()
-    emit({"phase": "build", "nvcc_seconds": secs, "seconds": time.perf_counter() - t0})
+    emit({"phase": "build", "nvcc_seconds": secs, "seconds": time.perf_counter() - t0,
+          "ptxas": {name: kernels.build_report(name) for name in kernels.KERNELS}})
 
     k = {"flash_attention_fwd": phase_kernels(card), **phase_backward_kernels(card)}
 

@@ -9,6 +9,10 @@ by ``kernels.load``):
 - ``_bwd_dq_kernel`` -> ``csrc/flash_attention_bwd_dq.cu``
 - ``_bwd_dkv_kernel`` -> ``csrc/flash_attention_bwd_dkv.cu``
 
+The two backward kernels run bf16 on the tensor cores (``csrc/flash_tc.cuh``)
+and round p and ds to bf16 before the products that consume them; float32
+stays on FMA loops, never TF32.
+
 ``flash_attention_plain`` and ``flash_attention_backward_plain`` compute the
 same functions in plain PyTorch.
 
@@ -169,11 +173,20 @@ def _launch_fwd(q, k, v, causal, sm_scale):
     return out, lse
 
 
+def _rows_aligned(x) -> bool:
+    """Every [.., t, h, :] row of x starts on a 16-byte boundary, as the bf16
+    backward kernels' 16-byte cp.async copies need."""
+    return (x.data_ptr() % 16 == 0
+            and all(s * x.element_size() % 16 == 0 for s in x.stride()[:3]))
+
+
 def _bwd_common(q, k, v, dout, lse, delta, causal, sm_scale):
     """The arguments the two backward kernels share, checked."""
     _check_kernel_inputs(q, k, v, dout)
     if dout.dtype != q.dtype:
         raise TypeError(f"dout {dout.dtype} must be {q.dtype}")
+    if q.dtype == torch.bfloat16 and not all(map(_rows_aligned, (q, k, v, dout))):
+        raise ValueError("bf16 backward kernels need every q/k/v/dout row 16-byte aligned")
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise TypeError("lse and delta must be float32")
     B, T, H, D = q.shape
@@ -217,10 +230,15 @@ def launch_bwd_dkv(q, k, v, dout, lse, delta, *, causal, sm_scale):
 
 
 def _launch_bwd(q, k, v, out, lse, dout, causal, sm_scale):
-    """dq from the dq kernel, dk/dv from the dkv kernel. dout is read
-    through its strides when its head dim is contiguous, else copied."""
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
+    """dq from the dq kernel, dk/dv from the dkv kernel. q/k/v/dout are read
+    through their strides when the kernels take them (head dim contiguous;
+    for bf16, rows 16-byte aligned), else copied first."""
+    def fit(x):
+        ok = x.stride(-1) == 1 and (x.dtype != torch.bfloat16 or _rows_aligned(x))
+        # a fresh allocation: .contiguous() keeps a contiguous but offset view
+        return x if ok else x.clone(memory_format=torch.contiguous_format)
+
+    q, k, v, dout = map(fit, (q, k, v, dout))
     if out.dtype != q.dtype:
         raise TypeError(f"out {out.dtype} must be {q.dtype}")
     delta = flash_attention_delta(out, dout)

@@ -6,7 +6,9 @@ runs them; the port's CPU path is its custom ops with their plain versions.
 Inputs come from numpy seeds. atol 5e-5, rtol 5e-4: the JAX package's own
 backward bounds (tests/test_flash_attention.py:47-50). The CUDA kernels
 themselves are held against the same plain version on the card by
-chip_smoke.py."""
+chip_smoke.py; the rounding of their bf16 tensor-core path (p and ds cast to
+bf16 before the products that use them) is emulated here and held against
+JAX within the bf16 bound."""
 
 import math
 
@@ -22,9 +24,11 @@ from ray_tpu.ops.flash_attention import flash_attention as jflash
 from ray_tpu_torch import kernels
 from ray_tpu_torch.ops.attention import attention as tattention
 from ray_tpu_torch.ops.flash_attention import (
+    _causal_mask,
     flash_attention,
     flash_attention_backward,
     flash_attention_backward_plain,
+    flash_attention_delta,
     launch_bwd_dkv,
     launch_bwd_dq,
 )
@@ -160,3 +164,60 @@ def test_kernel_launchers_refuse_cpu_tensors(launch):
     with pytest.raises(ValueError, match="CUDA"):
         launch(q, k, v, do, lse, delta, causal=True, sm_scale=0.125)
     assert dict(kernels.LAUNCHES) == before
+
+
+def _bf16_kernel_arithmetic(q, k, v, out, lse, do, *, causal, sm_scale):
+    """The arithmetic of the bf16 backward kernels (csrc/flash_attention_bwd_
+    {dq,dkv}.cu), emulated in plain PyTorch for this test: bf16 q/k/v/dO and
+    saved out, float32 products and sums, p = exp(s scale - lse) and
+    ds = p (dp - delta) scale in float32, then p and ds rounded to bf16
+    before dv = pᵀ dO, dq = ds k and dk = dsᵀ q; outputs in bf16."""
+    B, T, H, _ = q.shape
+    Tk = k.shape[1]
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * sm_scale
+    p = torch.exp(s - lse.reshape(B, H, T, 1))
+    if causal:
+        p = torch.where(_causal_mask(T, Tk, q.device), p, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = flash_attention_delta(out, do).reshape(B, H, T, 1)
+    ds = p * (dp - delta) * sm_scale
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsb, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsb, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pb, dof)
+    return tuple(x.bfloat16() for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_kernel_rounding_within_bf16_bound_of_jax(causal, D):
+    # bf16 inputs; JAX runs its Pallas backward on their float32 upcasts
+    B, T, H = 1, 128, 2
+    scale = 1.0 / math.sqrt(D)
+    q, k, v, do = (torch.tensor(x).bfloat16() for x in _arrays(7, B=B, T=T, Tk=T, H=H, D=D))
+
+    def bhtd(x):
+        return jnp.asarray(x.float().numpy()).transpose(0, 2, 1, 3).reshape(B * H, T, D)
+
+    def bthd(x):
+        return torch.tensor(np.asarray(x)).reshape(B, H, T, D).permute(0, 2, 1, 3)
+
+    qb, kb, vb, dob = map(bhtd, (q, k, v, do))
+    ob, lse = _flash_forward(qb, kb, vb, causal=causal, sm_scale=scale, block_q=32,
+                             block_k=32, interpret=True)
+    want = _flash_backward(qb, kb, vb, ob, lse, dob, causal=causal, sm_scale=scale,
+                           block_q=32, block_k=32, interpret=True)
+    out = bthd(ob).bfloat16()  # the forward kernel's output is in q's dtype
+    got = _bf16_kernel_arithmetic(q, k, v, out, torch.tensor(np.asarray(lse)[:, :, 0]), do,
+                                  causal=causal, sm_scale=scale)
+    for g, w in zip(got, want):
+        w = bthd(w)
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert bool(((g.float() - w).abs() <= 5e-2 + 5e-2 * w.abs()).all())
+    # the rounding is real: the emulated pair differs from the float32 plain
+    # version on the same inputs, within the same bound
+    plain = flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(),
+                                           torch.tensor(np.asarray(lse)[:, :, 0]),
+                                           do.float(), causal=causal, sm_scale=scale)
+    assert not all(torch.equal(g.float(), p.bfloat16().float()) for g, p in zip(got, plain))
