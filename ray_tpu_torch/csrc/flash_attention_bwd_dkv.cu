@@ -524,8 +524,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, (batch,
 // sequence, head) for q, k, v and dout in that order; for bfloat16 every row
-// must start 16-byte aligned. Returns the launch's cudaError_t (0 on
-// success); the kernel runs on `stream`.
+// must start 16-byte aligned (else cudaErrorInvalidValue, and nothing runs).
+// Returns the launch's cudaError_t (0 on success); the kernel runs on
+// `stream`.
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dk, void* dv,
                             int B, int H, int Tq, int Tk, int D, int dtype,
@@ -534,6 +535,12 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const v
                             long long v_sb, long long v_st, long long v_sh,
                             long long o_sb, long long o_st, long long o_sh,
                             float scale, int causal, void* stream) {
+  using flash_tc::rows_aligned16;
+  if (dtype == 1 && !(rows_aligned16(q, q_sb, q_st, q_sh) &&
+                      rows_aligned16(k, k_sb, k_st, k_sh) &&
+                      rows_aligned16(v, v_sb, v_st, v_sh) &&
+                      rows_aligned16(dout, o_sb, o_st, o_sh)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long st[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
                             v_sb, v_st, v_sh, o_sb, o_st, o_sh};
   return launch_d(dtype, D, q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, st, scale,

@@ -10,7 +10,9 @@
 //   C/D (16 x 8, float32), 4 registers: c0, c1 (g, 2t..2t+1), c2, c3 (g+8, ..).
 // So the accumulators of two neighbouring 8-column tiles are, packed to bf16,
 // the A operand of the next product over those 16 columns (pack_a), which is
-// how p and ds go from one product to the next without leaving registers.
+// how p and ds go from one product to the next without leaving registers,
+// and a row's values are spread over the four lanes of its quad (quad_max,
+// quad_sum).
 //
 // Tiles hold R rows of D bf16 (D / 8 chunks of 16 bytes). Chunk c of row r is
 // stored at chunk c ^ (r % 8): the eight rows that one ldmatrix phase reads at
@@ -131,6 +133,44 @@ __device__ __forceinline__ int bk_col(int lane) { return (lane >> 4) << 3; }
 // Store two floats as bf16x2 (4 bytes, aligned: col is even, D is a multiple of 8).
 __device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// Shared-memory store of 4 bytes and load of 16 bytes at a shared address.
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(x) : "memory");
+}
+__device__ __forceinline__ uint4 ld_shared_u128(uint32_t addr) {
+  uint4 r;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "r"(addr) : "memory");
+  return r;
+}
+
+// 2^x by the special-function unit alone (ex2.approx, flushing subnormal
+// results to zero); 2^-inf is +0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Max and sum over the four lanes of an m16n8k16 quad (the lanes 4g..4g+3
+// that hold one accumulator row).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Whether every row of a bf16 [B, T, H, D] tensor read through these
+// (batch, sequence, head) strides, in elements, starts 16-byte aligned, as
+// the 16-byte cp.async copies need. The launchers refuse anything else.
+inline bool rows_aligned16(const void* p, long long sb, long long st, long long sh) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 8 == 0 && st % 8 == 0 &&
+         sh % 8 == 0;
 }
 
 }  // namespace flash_tc

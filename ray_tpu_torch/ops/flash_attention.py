@@ -9,9 +9,12 @@ by ``kernels.load``):
 - ``_bwd_dq_kernel`` -> ``csrc/flash_attention_bwd_dq.cu``
 - ``_bwd_dkv_kernel`` -> ``csrc/flash_attention_bwd_dkv.cu``
 
-The two backward kernels run bf16 on the tensor cores (``csrc/flash_tc.cuh``)
-and round p and ds to bf16 before the products that consume them; float32
-stays on FMA loops, never TF32.
+All three kernels run bf16 on the tensor cores (``csrc/flash_tc.cuh``) and
+round p (and, in the backward, ds) to bf16 before the products that consume
+them; float32 stays on FMA loops, never TF32. The bf16 bodies copy rows in
+16-byte pieces with cp.async, so every q/k/v/dout row must start 16-byte
+aligned: ``_fit`` copies an input that is not (or whose head dim is not
+contiguous) before a launch, and the C launchers refuse one.
 
 ``flash_attention_plain`` and ``flash_attention_backward_plain`` compute the
 same functions in plain PyTorch.
@@ -127,10 +130,27 @@ def _check_inputs(q, k, v):
         raise ValueError("empty key sequence")
 
 
+def _rows_aligned(x) -> bool:
+    """Every [.., t, h, :] row of x starts on a 16-byte boundary, as the bf16
+    kernels' 16-byte cp.async copies need."""
+    return (x.data_ptr() % 16 == 0
+            and all(s * x.element_size() % 16 == 0 for s in x.stride()[:3]))
+
+
+def _fit(x):
+    """x itself where the kernels can read it through its strides (head dim
+    contiguous; for bf16, every row 16-byte aligned), else a fresh
+    contiguous copy."""
+    ok = x.stride(-1) == 1 and (x.dtype != torch.bfloat16 or _rows_aligned(x))
+    # a fresh allocation: .contiguous() keeps a contiguous but offset view
+    return x if ok else x.clone(memory_format=torch.contiguous_format)
+
+
 def _check_kernel_inputs(*xs):
     """What every kernel takes: CUDA tensors on one device, float32 or
     bfloat16, head dim in {64, 128, 256} and contiguous, B*H within the
-    grid's y limit."""
+    grid's y limit. The C launchers refuse bf16 rows that are not 16-byte
+    aligned (``_fit`` copies them first)."""
     q = xs[0]
     if q.device.type != "cuda" or any(x.device != q.device for x in xs):
         raise ValueError("kernel takes CUDA tensors on one device")
@@ -157,6 +177,9 @@ def _strides(*xs):
 
 
 def _launch_fwd(q, k, v, causal, sm_scale):
+    """(out, lse) from the forward kernel; q/k/v are read through their
+    strides where the kernel takes them, else copied first (``_fit``)."""
+    q, k, v = map(_fit, (q, k, v))
     _check_kernel_inputs(q, k, v)
     B, T, H, D = q.shape
     Tk = k.shape[1]
@@ -173,20 +196,11 @@ def _launch_fwd(q, k, v, causal, sm_scale):
     return out, lse
 
 
-def _rows_aligned(x) -> bool:
-    """Every [.., t, h, :] row of x starts on a 16-byte boundary, as the bf16
-    backward kernels' 16-byte cp.async copies need."""
-    return (x.data_ptr() % 16 == 0
-            and all(s * x.element_size() % 16 == 0 for s in x.stride()[:3]))
-
-
 def _bwd_common(q, k, v, dout, lse, delta, causal, sm_scale):
     """The arguments the two backward kernels share, checked."""
     _check_kernel_inputs(q, k, v, dout)
     if dout.dtype != q.dtype:
         raise TypeError(f"dout {dout.dtype} must be {q.dtype}")
-    if q.dtype == torch.bfloat16 and not all(map(_rows_aligned, (q, k, v, dout))):
-        raise ValueError("bf16 backward kernels need every q/k/v/dout row 16-byte aligned")
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise TypeError("lse and delta must be float32")
     B, T, H, D = q.shape
@@ -230,15 +244,10 @@ def launch_bwd_dkv(q, k, v, dout, lse, delta, *, causal, sm_scale):
 
 
 def _launch_bwd(q, k, v, out, lse, dout, causal, sm_scale):
-    """dq from the dq kernel, dk/dv from the dkv kernel. q/k/v/dout are read
-    through their strides when the kernels take them (head dim contiguous;
-    for bf16, rows 16-byte aligned), else copied first."""
-    def fit(x):
-        ok = x.stride(-1) == 1 and (x.dtype != torch.bfloat16 or _rows_aligned(x))
-        # a fresh allocation: .contiguous() keeps a contiguous but offset view
-        return x if ok else x.clone(memory_format=torch.contiguous_format)
-
-    q, k, v, dout = map(fit, (q, k, v, dout))
+    """dq from the dq kernel, dk/dv from the dkv kernel; q/k/v/dout are read
+    through their strides where the kernels take them, else copied first
+    (``_fit``)."""
+    q, k, v, dout = map(_fit, (q, k, v, dout))
     if out.dtype != q.dtype:
         raise TypeError(f"out {out.dtype} must be {q.dtype}")
     delta = flash_attention_delta(out, dout)

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from ray_tpu_torch import kernels
-from ray_tpu_torch.ops.flash_attention import _rows_aligned
+from ray_tpu_torch.ops.flash_attention import _fit, _rows_aligned
 
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
@@ -24,6 +24,10 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernel
 ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64EEEvPKT_S3_S3_S3_PKfS5_PS1_iiixxxxxxxxxxxxfi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 96 registers, 528 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_fwd_tc_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiixxxxxxxxxfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_fwd_tc_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiixxxxxxxxxfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 184 registers, used 1 barriers, 496 bytes cmem[0]
 """
 
 
@@ -87,6 +91,8 @@ def test_ptxas_report_reads_each_instantiation():
          "registers": 255, "spill_stores": 12, "spill_loads": 16, "smem_static": 1024},
         {"kernel": "flash_bwd_dq_kernel", "dtype": "float32", "D": 64,
          "registers": 96, "spill_stores": 0, "spill_loads": 0, "smem_static": 0},
+        {"kernel": "flash_fwd_tc_kernel", "dtype": "bfloat16", "D": 128,
+         "registers": 184, "spill_stores": 0, "spill_loads": 0, "smem_static": 0},
     ]
 
 
@@ -102,3 +108,32 @@ def test_bf16_rows_alignment_rule():
     assert not _rows_aligned(flat[1:].view(2, 8, 2, 64))  # 2 bytes off
     padded = torch.zeros(2, 8, 2, 68, dtype=torch.bfloat16)[..., :64]
     assert not _rows_aligned(padded)  # rows 136 bytes apart
+
+
+def _unaligned_bf16():
+    flat = torch.arange(2 * 8 * 2 * 64 + 1, dtype=torch.float32).bfloat16()
+    return flat[1:].view(2, 8, 2, 64)  # 2 bytes off
+
+
+@pytest.mark.parametrize("make", [
+    _unaligned_bf16,
+    lambda: torch.randn(2, 8, 2, 68).bfloat16()[..., :64],  # rows 136 bytes apart
+    lambda: torch.randn(2, 2, 8, 64).transpose(-1, -2),  # head dim not contiguous
+])
+def test_fit_copies_what_the_kernels_cannot_read(make):
+    x = make()
+    y = _fit(x)
+    assert y.data_ptr() != x.data_ptr() and y.is_contiguous()
+    assert y.stride(-1) == 1 and (y.dtype != torch.bfloat16 or _rows_aligned(y))
+    assert torch.equal(y, x)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.zeros(2, 8, 2, 64, dtype=torch.bfloat16),
+    lambda: torch.zeros(2, 8, 2, 64, dtype=torch.bfloat16)[:, 2:],  # aligned view
+    lambda: torch.zeros(2 * 8 * 2 * 64 + 1)[1:].view(2, 8, 2, 64),  # float32: any offset
+    lambda: torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16)[:, :, ::2],  # strided heads
+])
+def test_fit_passes_through_what_the_kernels_read(make):
+    x = make()
+    assert _fit(x) is x
