@@ -26,6 +26,23 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               requests in the planned loop (eos_id None) and the reactive loop
               (an eos_id); in float32 at 2 layers its greedy tokens must equal
               generate()'s exactly.
+   serving_int8  — the same, with kv_dtype="int8": both loops, the pools int8
+              and float32 on the card, the dequantized prompt K/V of every
+              (token, kv-head) vector within 1.5e-2 of its max of the native
+              engine's pool; at 2 layers, float32, per-token greedy agreement
+              with the native engine >= 85%, each token predicted on the
+              native engine's prefix.
+   serving_spec  — speculative decoding (spec_k 4, spec_ngram 2) over the
+              prompts and two repetitive ones, with the n-gram drafter and an
+              oracle spec_drafter (the plain engine's continuation); at 2
+              layers, float32, the n-gram, oracle and wrong drafters must emit
+              the plain engine's tokens exactly, the oracle accepted in full,
+              the wrong drafter never.
+   serving_adopt — a live request's prompt pages submit_prefilled into a
+              second engine (no prefill may run there), and paged_prefill_suffix
+              over a page-aligned prefix scattered into a fresh pool; at 2
+              layers, float32, the continuation and the suffix's first token
+              must equal the first engine's.
 5. train    — with the earlier weights and pools freed: Llama-3-8B width cut
               to 8 layers, bf16, remat on, tokens [2, 2049]; one step's
               gradients with attn_impl="auto" against "plain" (loss within
@@ -463,7 +480,7 @@ def phase_forward(card: str, kernels, cfg, params, tokens):
 
 def serve(params, cfg, prompts, max_tokens, **engine_kw):
     """Run every prompt through one engine concurrently; returns (outputs,
-    per-request time to first token in ms, wall seconds)."""
+    per-request time to first token in ms, wall seconds, the engine)."""
     import torch
 
     from ray_tpu_torch.llm import ContinuousBatchingEngine
@@ -491,14 +508,30 @@ def serve(params, cfg, prompts, max_tokens, **engine_kw):
         if eng.error is not None:
             raise RuntimeError("engine loop died") from eng.error
         torch.cuda.synchronize()
-        return res, time.perf_counter() - t0
+        return res, time.perf_counter() - t0, eng
 
-    res, wall = asyncio.run(go())
-    return [r[0] for r in res], [r[1] for r in res], wall
+    res, wall, eng = asyncio.run(go())
+    return [r[0] for r in res], [r[1] for r in res], wall, eng
 
 
-def phase_serving(card: str, kernels, cfg, params, cfg32, params32) -> dict:
-    """Returns the kernel launch counts of the serving runs."""
+def check_completions(phase, prompts, outs, cfg, max_tokens, eos=None) -> None:
+    """Every completion is max_tokens long (or ends at the eos) and in the
+    vocab."""
+    for p, o in zip(prompts, outs):
+        ok_len = len(o) == max_tokens or (eos is not None and 0 < len(o) and o[-1] == eos)
+        if not ok_len or not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError(f"{phase}: bad completion for a {len(p)}-token prompt: {o}")
+
+
+def agreement(outs, ref) -> float:
+    """Share of token positions where two runs' greedy tokens agree."""
+    pairs = [(a, b) for o, r in zip(outs, ref) for a, b in zip(o, r)]
+    return sum(a == b for a, b in pairs) / max(1, len(pairs))
+
+
+def phase_serving(card: str, kernels, cfg, params, cfg32, params32):
+    """Returns (the kernel launch counts of the serving runs, the prompts,
+    the bf16 planned loop's tokens, generate's float32 tokens)."""
     import numpy as np
 
     from ray_tpu_torch.llm import generate
@@ -511,11 +544,8 @@ def phase_serving(card: str, kernels, cfg, params, cfg32, params32) -> dict:
     planned = None
     for loop in ("planned", "reactive"):
         eos = None if loop == "planned" else planned[0][max_tokens // 2]
-        outs, ttft, wall = serve(params, cfg, prompts, max_tokens, eos_id=eos)
-        for p, o in zip(prompts, outs):
-            ok_len = len(o) == max_tokens or (eos is not None and 0 < len(o) and o[-1] == eos)
-            if not ok_len or not all(0 <= t < cfg.vocab_size for t in o):
-                raise AssertionError(f"{loop}: bad completion for a {len(p)}-token prompt: {o}")
+        outs, ttft, wall, _ = serve(params, cfg, prompts, max_tokens, eos_id=eos)
+        check_completions(loop, prompts, outs, cfg, max_tokens, eos)
         planned = planned or outs
         n_tok = sum(len(o) for o in outs)
         emit({"phase": "serving", "loop": loop, "layers": cfg.n_layers, "dtype": cfg.dtype,
@@ -526,15 +556,321 @@ def phase_serving(card: str, kernels, cfg, params, cfg32, params32) -> dict:
 
     ref = generate(params32, cfg32, prompts, max_new_tokens=max_tokens)
     for loop, eos in (("planned", None), ("reactive", -1)):
-        outs, _, _ = serve(params32, cfg32, prompts, max_tokens, eos_id=eos)
+        outs, _, _, _ = serve(params32, cfg32, prompts, max_tokens, eos_id=eos)
         same = [o == r for o, r in zip(outs, ref)]
         emit({"phase": "serving_f32_parity", "loop": loop, "layers": 2,
               "equal_to_generate": same})
         if not all(same):
             raise AssertionError(f"f32 engine ({loop}) differs from generate: {outs} vs {ref}")
-    return serve_launches
+    return serve_launches, prompts, planned, ref
 
 
+def prefill_pages(cfg, params, prompts, kv_dtype):
+    """Admit ``prompts`` into a fresh engine (one prefill wave, no decode)
+    and return (the engine, each prompt's pool pages)."""
+    from ray_tpu_torch.llm import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(params, cfg, max_batch=len(prompts), page_size=16,
+                                   n_pages=512, max_seq_len=2048, kv_dtype=kv_dtype)
+    for p in prompts:
+        eng.submit(p, max_tokens=1)
+    eng._admit_wave()
+    pages = [eng.page_tables[r.slot, :-(-len(r.prompt) // 16)].tolist()
+             for r in eng.slot_req]
+    return eng, pages
+
+
+def phase_serving_int8(card: str, cfg, params, cfg32, params32, prompts, planned, ref32):
+    """The engine with kv_dtype="int8" at 32 layers, bf16: both loops, the
+    pools' dtypes and device, the dequantized prompt K/V against the native
+    engine's pool; at 2 layers, float32: greedy agreement with the native
+    engine >= 85% (the JAX package's bound, tests/test_llm.py)."""
+    import torch
+
+    from ray_tpu_torch.llm.engine import _kv_read
+
+    max_tokens = 32
+    first = None
+    for loop in ("planned", "reactive"):
+        eos = None if loop == "planned" else first[0][max_tokens // 2]
+        outs, ttft, wall, eng = serve(params, cfg, prompts, max_tokens, eos_id=eos,
+                                      kv_dtype="int8")
+        check_completions(f"serving_int8 {loop}", prompts, outs, cfg, max_tokens, eos)
+        pools = {name: (pool["q"].dtype, pool["q"].device.type, pool["s"].dtype,
+                        pool["s"].device.type)
+                 for name, pool in (("k", eng.kpool), ("v", eng.vpool))}
+        del eng
+        first = first or outs
+        n_tok = sum(len(o) for o in outs)
+        emit({"phase": "serving_int8", "loop": loop, "layers": cfg.n_layers,
+              "dtype": cfg.dtype, "kv_dtype": "int8", "eos_id": eos,
+              "completion_lens": [len(o) for o in outs], "ttft_ms": ttft,
+              "tokens_per_s": n_tok / wall, "wall_s": wall,
+              "pools": {k: [str(x) for x in v] for k, v in pools.items()},
+              "greedy_agreement_vs_bf16_pool": agreement(outs, planned) if loop == "planned"
+              else None, "card": card})
+        want = (torch.int8, "cuda", torch.float32, "cuda")
+        if any(v != want for v in pools.values()):
+            raise AssertionError(f"int8 pools are not int8/float32 on cuda: {pools}")
+
+    # the prompt K/V, dequantized, against the native engine's pool
+    native, pages = prefill_pages(cfg, params, prompts, None)
+    q8, pages8 = prefill_pages(cfg, params, prompts, "int8")
+    if pages != pages8:
+        raise AssertionError("the two engines admitted into different pages")
+    worst = 0.0
+    for pg, p in zip(pages, prompts):
+        idx = torch.tensor([pg], device="cuda")
+        for i in range(cfg.n_layers):
+            for a, b in ((native.kpool, q8.kpool), (native.vpool, q8.vpool)):
+                want = _kv_read(a, i, idx, cfg.torch_dtype)[0, :len(p)].float()
+                got = _kv_read(b, i, idx, cfg.torch_dtype)[0, :len(p)].float()
+                ratio = (got - want).abs().amax(-1) / want.abs().amax(-1).clamp_min(1e-30)
+                worst = max(worst, float(ratio.max()))
+    del native, q8
+    emit({"phase": "serving_int8_pool", "layers": cfg.n_layers, "dtype": cfg.dtype,
+          "positions": sum(len(p) for p in prompts),
+          "worst_err_over_vector_max": worst, "tol": 1.5e-2, "card": card})
+    if not worst <= 1.5e-2:
+        raise AssertionError(f"int8 pool off the native pool by {worst} of max|val|")
+
+    # float32: greedy agreement with the native engine. Free-running, one
+    # flip changes every later input of its request, so at full width with
+    # random weights (near-ties every few dozen tokens) the share says little;
+    # the check is per token, each prediction made on the native engine's
+    # own prefix (teacher-forced), against the native pool's as a control
+    outs, _, _, _ = serve(params32, cfg32, prompts, max_tokens, kv_dtype="int8")
+    forced = {kv: agreement(teacher_forced(cfg32, params32, prompts, ref32, kv), ref32)
+              for kv in (None, "int8")}
+    forced_bf16 = {kv: agreement(teacher_forced(cfg, params, prompts, planned, kv), planned)
+                   for kv in (None, "int8")}
+    agree = forced["int8"]
+    emit({"phase": "serving_int8_f32", "layers": 2,
+          "free_running_agreement_vs_native": agreement(outs, ref32),
+          "per_token_agreement_vs_native": agree,
+          "per_token_agreement_native_pool": forced[None], "tol": 0.85,
+          "bf16_32_layers_per_token_agreement": forced_bf16["int8"],
+          "bf16_32_layers_per_token_agreement_native_pool": forced_bf16[None]})
+    if not agree >= 0.85:
+        raise AssertionError(f"int8 f32 engine agrees with the native one on {agree}")
+
+
+def teacher_forced(cfg, params, prompts, conts, kv_dtype):
+    """The engine's greedy prediction at every position of ``conts`` (each
+    prompt's continuation), each made on the prompt and conts' own tokens
+    before it: the prompts are prefilled into a fresh pool, then the
+    continuation is fed one decode step at a time."""
+    import torch
+
+    from ray_tpu_torch.llm.engine import make_kv_pools, paged_decode_multi, paged_prefill_batch
+
+    PS, B, T = 16, len(prompts), len(conts[0])
+    n_pages = [-(-(len(p) + T) // PS) for p in prompts]
+    kpool, vpool = make_kv_pools(cfg, PS, sum(n_pages) + 1, kv_dtype, "cuda")
+    table = torch.zeros((B, max(n_pages)), dtype=torch.long, device="cuda")
+    zeros = torch.zeros(1, dtype=torch.long, device="cuda")
+    preds, first = [[] for _ in prompts], 1
+    for b, p in enumerate(prompts):
+        table[b, :n_pages[b]] = torch.arange(first, first + n_pages[b])
+        first += n_pages[b]
+        n = -(-len(p) // PS)
+        toks = torch.zeros((1, n * PS), dtype=torch.long, device="cuda")
+        toks[0, :len(p)] = torch.tensor(p)
+        preds[b].append(int(paged_prefill_batch(
+            params, None, zeros, toks, table[b:b + 1, :n], kpool, vpool,
+            torch.tensor([len(p)], device="cuda"), zeros.float(), None, cfg)[0]))
+    fed = torch.tensor(conts, device="cuda")
+    pos = torch.tensor([len(p) for p in prompts], device="cuda")
+    every = torch.ones(B, dtype=torch.bool, device="cuda")
+    for j in range(T - 1):
+        toks, _, _ = paged_decode_multi(params, None, zeros.expand(B), fed[:, j], pos + j,
+                                        table, kpool, vpool, every, zeros.expand(B).float(),
+                                        None, cfg, 1)
+        for b, t in enumerate(toks[0].tolist()):
+            preds[b].append(t)
+    return preds
+
+
+def repetitive_prompt(n, seed):
+    """A 6-token motif repeated to n tokens (tests/test_spec_decode.py)."""
+    import numpy as np
+
+    pat = list(map(int, np.random.default_rng(seed).integers(1, 512, 6)))
+    return (pat * (n // len(pat) + 1))[:n]
+
+
+def drafter(prompts, conts, vocab, wrong=False):
+    """A spec_drafter that proposes each request's continuation from
+    ``conts`` (or (token + 1) % vocab of it): the request is the one with
+    the longest prompt that its context starts with."""
+    import numpy as np
+
+    seqs = sorted(((np.asarray(p), list(p) + list(c)) for p, c in zip(prompts, conts)),
+                  key=lambda pc: -len(pc[0]))
+
+    def propose(context, pos, k):
+        seq = next(s for p, s in seqs
+                   if len(p) <= len(context) and np.array_equal(context[:len(p)], p))
+        got = seq[pos + 1:pos + 1 + k]
+        return [(t + 1) % vocab for t in got] if wrong else got
+
+    return propose
+
+
+def phase_serving_spec(card: str, cfg, params, cfg32, params32, prompts):
+    """Speculative decoding (spec_k 4, spec_ngram 2) over the prompts and
+    two repetitive ones. 32 layers, bf16: tokens/s, TTFT, counters and the
+    agreement with the plain engine, as information (random weights), and
+    the oracle drafter's ceiling; 2 layers, float32: the fused n-gram path
+    and the oracle and wrong drafters emit the plain engine's tokens, the
+    oracle is accepted in full and the wrong one never."""
+    from ray_tpu_torch.llm import generate
+
+    prompts = prompts + [repetitive_prompt(256, 0), repetitive_prompt(1024, 1)]
+    max_tokens = 32
+    spec_kw = dict(spec_enable=True, spec_k=4, spec_ngram=2)
+
+    def stats_row(eng):
+        st = eng.spec_stats()
+        return {k: st[k] for k in ("spec_steps", "spec_proposed", "spec_accepted",
+                                   "spec_accept_rate")}
+
+    # at bf16 the verify forward ([B, k+1, D] products) can flip a greedy
+    # near-tie that plain decode ([B, 1, D]) does not, so the oracle runs
+    # twice: on the plain engine's continuation (asked for), and on the spec
+    # engine's own (the n-gram run's tokens), whose acceptance is the
+    # verify path's real ceiling
+    plain, _, plain_wall, _ = serve(params, cfg, prompts, max_tokens)
+    spec_outs = None
+    for name in ("ngram", "oracle", "oracle_own"):
+        extra = {} if name == "ngram" else {"spec_drafter": drafter(
+            prompts, plain if name == "oracle" else spec_outs, cfg.vocab_size)}
+        outs, ttft, wall, eng = serve(params, cfg, prompts, max_tokens, **spec_kw, **extra)
+        spec_outs = spec_outs or outs
+        check_completions(f"serving_spec {name}", prompts, outs, cfg, max_tokens)
+        n_tok = sum(len(o) for o in outs)
+        emit({"phase": "serving_spec", "drafter": name, "layers": cfg.n_layers,
+              "dtype": cfg.dtype, "prompt_lens": [len(p) for p in prompts],
+              "ttft_ms": ttft, "tokens_per_s": n_tok / wall, "wall_s": wall,
+              "plain_tokens_per_s": n_tok / plain_wall, **stats_row(eng),
+              "agreement_vs_plain": agreement(outs, plain),
+              "agreement_vs_ngram_run": agreement(outs, spec_outs), "card": card})
+        del eng
+
+    ref = generate(params32, cfg32, prompts, max_new_tokens=max_tokens)
+    for name, extra in (("ngram", {}),
+                        ("oracle", {"spec_drafter": drafter(prompts, ref, cfg.vocab_size)}),
+                        ("wrong", {"spec_drafter": drafter(prompts, ref, cfg.vocab_size,
+                                                           wrong=True)})):
+        outs, _, _, eng = serve(params32, cfg32, prompts, max_tokens, **spec_kw, **extra)
+        st = stats_row(eng)
+        del eng
+        same = [o == r for o, r in zip(outs, ref)]
+        emit({"phase": "serving_spec_f32", "drafter": name, "layers": 2, **st,
+              "equal_to_plain": same})
+        if not all(same):
+            raise AssertionError(f"f32 spec engine ({name}) differs from plain: {outs} vs {ref}")
+        if name == "oracle" and not st["spec_accepted"] == st["spec_proposed"] > 0:
+            raise AssertionError(f"the oracle drafter was not accepted in full: {st}")
+        if name == "wrong" and not (st["spec_accepted"] == 0 and st["spec_proposed"] > 0):
+            raise AssertionError(f"the wrong drafter was accepted: {st}")
+
+
+def phase_serving_adopt(card: str, cfg, params, cfg32, params32, prompts) -> None:
+    """Page adoption: a live request's prompt pages (kpool[:, rows]) from
+    one engine are submit_prefilled into a second with the first token; no
+    prefill may run there, and at float32 the continuation must equal the
+    first engine's. Then paged_prefill_suffix over a page-aligned prefix
+    scattered into a fresh pool: at float32 its first token must equal the
+    full prefill's."""
+    import importlib
+
+    import torch
+
+    from ray_tpu_torch.llm import ContinuousBatchingEngine
+
+    em = importlib.import_module("ray_tpu_torch.llm.engine")
+    max_tokens, PS = 32, 16
+    prompt = prompts[-1]  # the longest
+    n_cover = -(-len(prompt) // PS)
+
+    def engine(c, p):
+        # an eos outside the vocab: the reactive loop, never cut short
+        return ContinuousBatchingEngine(p, c, max_batch=4, page_size=PS, n_pages=512,
+                                        max_seq_len=2048, eos_id=c.vocab_size)
+
+    async def source(c, p):
+        """(tokens, k_stack, v_stack, first token, TTFT ms) of the prompt
+        in a first engine, the stacks taken while the request is live."""
+        eng = engine(c, p)
+        await eng.start()
+        t0 = time.perf_counter()
+        rid = eng.submit(prompt, max_tokens=max_tokens)
+        out, stacks, ttft = [], None, None
+        async for blk in eng.stream_blocks(rid):
+            if stacks is None:
+                ttft = (time.perf_counter() - t0) * 1e3
+                rows = torch.tensor(eng.page_tables[eng._reqs[rid].slot, :n_cover],
+                                    device="cuda")
+                stacks = (eng.kpool[:, rows], eng.vpool[:, rows])
+            out.extend(blk)
+        await eng.stop()
+        return out, *stacks, out[0], ttft
+
+    async def adopt(c, p, k_stack, v_stack, first):
+        eng = engine(c, p)
+        await eng.start()
+        t0 = time.perf_counter()
+        rid = eng.submit_prefilled(prompt, k_stack, v_stack, first, max_tokens=max_tokens)
+        out, ttft = [], None
+        async for blk in eng.stream_blocks(rid):
+            if ttft is None:
+                ttft = (time.perf_counter() - t0) * 1e3
+            out.extend(blk)
+        await eng.stop()
+        return out, ttft
+
+    real, calls = em.paged_prefill_batch, []
+    for c, p in ((cfg, params), (cfg32, params32)):
+        out, k_stack, v_stack, first, src_ttft = asyncio.run(source(c, p))
+        em.paged_prefill_batch = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+        try:
+            got, ttft = asyncio.run(adopt(c, p, k_stack, v_stack, first))
+        finally:
+            em.paged_prefill_batch = real
+
+        # suffix prefill over the first n_cover - 1 pages, scattered into
+        # pages of a fresh pool; the suffix's pages follow them
+        kpool, vpool = em.make_kv_pools(c, PS, n_cover + 8, None, "cuda")
+        n_pre = n_cover - 1
+        pre = list(range(1, n_cover))
+        em.scatter_pages(kpool, pre, k_stack[:, :n_pre])
+        em.scatter_pages(vpool, pre, v_stack[:, :n_pre])
+        suffix = prompt[n_pre * PS:]
+        Ts = 64  # a padded bucket: its tail passes the table's last page
+        toks = torch.zeros((1, Ts), dtype=torch.long, device="cuda")
+        toks[0, :len(suffix)] = torch.tensor(suffix)
+        table = torch.tensor([pre + [n_cover]], device="cuda")
+        aids, prefix_lens, true_lens, temps = (
+            torch.tensor(x, device="cuda") for x in ([0], [n_pre * PS], [len(suffix)], [0.0]))
+        suffix_first, suffix_ms = timed(lambda: em.paged_prefill_suffix(
+            p, None, aids, toks, table, kpool, vpool, prefix_lens, true_lens, temps,
+            None, c))
+        del kpool, vpool, k_stack, v_stack
+        row = {"phase": "serving_adopt", "layers": c.n_layers, "dtype": c.dtype,
+               "prompt_len": len(prompt), "pages": n_cover, "prefills_in_adopting_engine":
+               len(calls), "source_ttft_ms": src_ttft, "adopted_ttft_ms": ttft,
+               "continuation_equal": got == out, "suffix_prefix_tokens": n_pre * PS,
+               "suffix_tokens": len(suffix), "suffix_prefill_ms": suffix_ms,
+               "suffix_first_equal": int(suffix_first[0]) == first, "card": card}
+        emit(row)
+        if calls:
+            raise AssertionError(f"the adopting engine ran {len(calls)} prefills")
+        if c.dtype == "float32" and not (row["continuation_equal"]
+                                         and row["suffix_first_equal"]):
+            raise AssertionError(f"f32 adoption or suffix prefill differs: {row}")
+        if len(got) != max_tokens:
+            raise AssertionError(f"adopted request gave {len(got)} tokens")
 def profile_step(fn, card: str) -> dict:
     """One call of ``fn`` under torch.profiler: device time by kernel group
     (flash kernels, matrix products, the rest), each flash kernel's time, the
@@ -716,7 +1052,11 @@ def main() -> int:
           "params": tree_numel(params)})
     tokens = torch.randint(0, cfg.vocab_size, (2, 2049), generator=g, device="cuda")
     launches, cfg32, params32 = phase_forward(card, kernels, cfg, params, tokens)
-    serve_launches = phase_serving(card, kernels, cfg, params, cfg32, params32)
+    serve_launches, prompts, planned, ref32 = phase_serving(card, kernels, cfg, params,
+                                                            cfg32, params32)
+    phase_serving_int8(card, cfg, params, cfg32, params32, prompts, planned, ref32)
+    phase_serving_spec(card, cfg, params, cfg32, params32, prompts)
+    phase_serving_adopt(card, cfg, params, cfg32, params32, prompts)
     del params, params32, tokens
     torch.cuda.empty_cache()
     train_launches = phase_train(card, kernels, k)

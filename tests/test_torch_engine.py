@@ -10,6 +10,7 @@ import asyncio
 import jax
 import numpy as np
 import pytest
+import torch
 
 from ray_tpu.llm import ContinuousBatchingEngine as JEngine
 from ray_tpu.llm import generate as jgenerate
@@ -167,11 +168,17 @@ def test_sampled_rows_leave_greedy_rows_exact(models):
 
 
 def test_unsupported_options_raise(models):
+    """Only export_pages still waits for a later slice; int8 pools and
+    speculative decoding build, and bad inputs raise before any launch."""
     _, _, cfg, params, _ = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatchingEngine(params, cfg, kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatchingEngine(params, cfg, spec_enable=True)
+    eng = ContinuousBatchingEngine(params, cfg, kv_dtype="int8", spec_enable=True)
+    assert eng.kpool["q"].dtype == torch.int8 and eng.vpool["s"].dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="ROADMAP.*[Dd]isagg"):
+        eng.export_pages(1)
+    with pytest.raises(ValueError, match="vocab"):
+        stack = torch.zeros((cfg.n_layers, 1, 16, cfg.n_kv_heads, cfg.head_dim))
+        ContinuousBatchingEngine(params, cfg).submit_prefilled(
+            [1, 2], stack, stack, cfg.vocab_size)
     with pytest.raises(ValueError, match="kv_dtype"):
         ContinuousBatchingEngine(params, cfg, kv_dtype="fp4")
     eng = ContinuousBatchingEngine(params, cfg)
