@@ -37,12 +37,29 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               oracle spec_drafter (the plain engine's continuation); at 2
               layers, float32, the n-gram, oracle and wrong drafters must emit
               the plain engine's tokens exactly, the oracle accepted in full,
-              the wrong drafter never.
+              the wrong drafter never; at 32 layers, bf16, the verify forward
+              (paged_decode_verify) fed the plain engine's continuation must
+              predict decode's token on the same prefix at >= 95% of positions
+              (teacher-forced), each flip reported with its logit margins.
    serving_adopt — a live request's prompt pages submit_prefilled into a
               second engine (no prefill may run there), and paged_prefill_suffix
               over a page-aligned prefix scattered into a fresh pool; at 2
               layers, float32, the continuation and the suffix's first token
               must equal the first engine's.
+   serving_server — the serving layer: LLMEngineServer answers the 6 prompts
+              through __call__ and stream_deltas together; LLMServer batches 8
+              concurrent requests at two temperatures into one batch and one
+              generate call per temperature; build_llm_processor maps generate
+              over an 8-row dataset in 2 calls. At 2 layers, float32, __call__,
+              stream, stream_deltas, LLMServer and the processor must give the
+              engine's or generate's tokens exactly.
+   serving_disagg — PrefillWorker -> KV-page manifest -> DecodeWorker for the
+              6 prompts, then again through the prefix cache (export_pages of
+              live requests, insert, lookup, a suffix prefill, adoption of
+              prefix + suffix); at 2 layers, float32, both legs must give the
+              aggregated engine's tokens, and every shipped page and adopted
+              stack must equal its pool rows bit for bit (native, bf16 and
+              int8 pools; the bf16 native pool at 32 layers too).
 5. train    — with the earlier weights and pools freed: Llama-3-8B width cut
               to 8 layers, bf16, remat on, tokens [2, 2049]; one step's
               gradients with attn_impl="auto" against "plain" (loss within
@@ -62,6 +79,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -531,7 +549,7 @@ def agreement(outs, ref) -> float:
 
 def phase_serving(card: str, kernels, cfg, params, cfg32, params32):
     """Returns (the kernel launch counts of the serving runs, the prompts,
-    the bf16 planned loop's tokens, generate's float32 tokens)."""
+    the bf16 planned loop's tokens and TTFTs, generate's float32 tokens)."""
     import numpy as np
 
     from ray_tpu_torch.llm import generate
@@ -541,12 +559,12 @@ def phase_serving(card: str, kernels, cfg, params, cfg32, params32):
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lens]
     max_tokens = 32
     kernels.LAUNCHES.clear()
-    planned = None
+    planned = planned_ttft = None
     for loop in ("planned", "reactive"):
         eos = None if loop == "planned" else planned[0][max_tokens // 2]
         outs, ttft, wall, _ = serve(params, cfg, prompts, max_tokens, eos_id=eos)
         check_completions(loop, prompts, outs, cfg, max_tokens, eos)
-        planned = planned or outs
+        planned, planned_ttft = planned or outs, planned_ttft or ttft
         n_tok = sum(len(o) for o in outs)
         emit({"phase": "serving", "loop": loop, "layers": cfg.n_layers, "dtype": cfg.dtype,
               "eos_id": eos, "requests": len(prompts), "prompt_lens": list(lens),
@@ -562,7 +580,7 @@ def phase_serving(card: str, kernels, cfg, params, cfg32, params32):
               "equal_to_generate": same})
         if not all(same):
             raise AssertionError(f"f32 engine ({loop}) differs from generate: {outs} vs {ref}")
-    return serve_launches, prompts, planned, ref
+    return serve_launches, prompts, planned, planned_ttft, ref
 
 
 def prefill_pages(cfg, params, prompts, kv_dtype):
@@ -691,6 +709,75 @@ def teacher_forced(cfg, params, prompts, conts, kv_dtype):
     return preds
 
 
+def teacher_forced_verify(cfg, params, prompts, conts, dec, k):
+    """The verify forward's greedy predictions on ``conts`` (each prompt's
+    continuation) as ``teacher_forced`` lays them out: the prompts are
+    prefilled, then the continuation is fed k+1 positions at a time
+    through paged_decode_verify, its own next k tokens as the drafts, so
+    each position is predicted on the continuation's own prefix, as
+    decode's are in ``dec`` (``teacher_forced``'s). Returns (predictions,
+    one row per position where they differ from ``dec``: the verify
+    logits' top-2 margin and the gap between its token's logit and
+    decode's token's, beside one bf16 step at that logit)."""
+    import torch
+
+    from ray_tpu_torch.llm.engine import (
+        _paged_forward, make_kv_pools, paged_decode_verify, paged_prefill_batch)
+    from ray_tpu_torch.ops.basic import matmul, rope_freqs
+
+    PS, B, T = 16, len(prompts), len(conts[0])
+    n_pages = [-(-(len(p) + T + k) // PS) for p in prompts]
+    kpool, vpool = make_kv_pools(cfg, PS, sum(n_pages) + 1, None, "cuda")
+    table = torch.zeros((B, max(n_pages)), dtype=torch.long, device="cuda")
+    zeros = torch.zeros(1, dtype=torch.long, device="cuda")
+    preds, first = [[] for _ in prompts], 1
+    for b, p in enumerate(prompts):
+        table[b, :n_pages[b]] = torch.arange(first, first + n_pages[b])
+        first += n_pages[b]
+        n = -(-len(p) // PS)
+        toks = torch.zeros((1, n * PS), dtype=torch.long, device="cuda")
+        toks[0, :len(p)] = torch.tensor(p)
+        preds[b].append(int(paged_prefill_batch(
+            params, None, zeros, toks, table[b:b + 1, :n], kpool, vpool,
+            torch.tensor([len(p)], device="cuda"), zeros.float(), None, cfg)[0]))
+    fed = torch.tensor(conts, device="cuda")
+    fed = torch.cat([fed, torch.zeros((B, k), dtype=torch.long, device="cuda")], 1)
+    pos = torch.tensor([len(p) for p in prompts], device="cuda")
+    aids, every = zeros.expand(B), torch.ones(B, dtype=torch.bool, device="cuda")
+    cos, sin = rope_freqs(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, device="cuda")
+    ar = torch.arange(k + 1, device="cuda")
+    flips = []
+    for j in range(0, T - 1, k + 1):
+        n = min(k, T - 2 - j)  # the window predicts positions j+1 .. j+n+1
+        drafts = fed[:, j + 1:j + 1 + k]
+        out, _, _, _, _ = paged_decode_verify(
+            params, None, aids, fed[:, j], pos + j, drafts, table, kpool, vpool,
+            torch.full((B,), n, device="cuda"), every, aids.float(), None, cfg)
+        with torch.inference_mode():  # the same forward, for its logits
+            x = _paged_forward(params, None, aids, fed[:, j:j + k + 1],
+                               (pos + j)[:, None] + ar[None, :], table, kpool, vpool,
+                               cfg, cos, sin)
+            logits = matmul(x, params["lm_head"]["kernel"]).float()
+        if not torch.equal(logits.argmax(-1), out):
+            raise AssertionError("paged_decode_verify's tokens are not its forward's argmax")
+        top2 = logits.topk(2, dim=-1).values
+        out = out.tolist()
+        for b in range(B):
+            for i in range(n + 1):
+                v, d = out[b][i], dec[b][j + i + 1]
+                preds[b].append(v)
+                if v != d:
+                    lv = float(logits[b, i, v])
+                    flips.append({"request": b, "position": j + i + 1,
+                                  "verify_token": v, "decode_token": d,
+                                  "top2_margin": float(top2[b, i, 0] - top2[b, i, 1]),
+                                  "logit_gap": lv - float(logits[b, i, d]),
+                                  "bf16_step_at_logit": 2.0 ** (math.floor(
+                                      math.log2(max(abs(lv), 1e-30))) - 7)})
+    del kpool, vpool
+    return preds, flips
+
+
 def repetitive_prompt(n, seed):
     """A 6-token motif repeated to n tokens (tests/test_spec_decode.py)."""
     import numpy as np
@@ -756,6 +843,20 @@ def phase_serving_spec(card: str, cfg, params, cfg32, params32, prompts):
               "agreement_vs_plain": agreement(outs, plain),
               "agreement_vs_ngram_run": agreement(outs, spec_outs), "card": card})
         del eng
+
+    # teacher-forced on the plain engine's bf16 continuation: decode's
+    # prediction ([B, 1] products) against the verify forward's ([B, k+1]),
+    # each on the same prefix, so one near-tie flip cannot derail the rest
+    dec = teacher_forced(cfg, params, prompts, plain, None)
+    ver, flips = teacher_forced_verify(cfg, params, prompts, plain, dec, spec_kw["spec_k"])
+    forced = agreement([v[1:] for v in ver], [d[1:] for d in dec])
+    emit({"phase": "serving_spec_forced", "layers": cfg.n_layers, "dtype": cfg.dtype,
+          "positions": sum(len(d) - 1 for d in dec), "verify_vs_decode_agreement": forced,
+          "tol": 0.95, "free_running_spec_vs_plain": agreement(spec_outs, plain),
+          "flips": flips, "card": card})
+    if not forced >= 0.95:
+        raise AssertionError(f"bf16 verify forward agrees with decode on {forced} of "
+                             f"teacher-forced positions: {flips}")
 
     ref = generate(params32, cfg32, prompts, max_new_tokens=max_tokens)
     for name, extra in (("ngram", {}),
@@ -871,6 +972,342 @@ def phase_serving_adopt(card: str, cfg, params, cfg32, params32, prompts) -> Non
             raise AssertionError(f"f32 adoption or suffix prefill differs: {row}")
         if len(got) != max_tokens:
             raise AssertionError(f"adopted request gave {len(got)} tokens")
+
+
+def count_generate_calls():
+    """Wrap ``ray_tpu_torch.llm.generation.generate`` (the servers and the
+    processor call it by module attribute): returns (the list of batch
+    sizes it was called with, a function that restores it)."""
+    import importlib
+
+    gen = importlib.import_module("ray_tpu_torch.llm.generation")
+    real, calls = gen.generate, []
+
+    def counting(params, cfg, prompts, **kw):
+        calls.append(len(prompts))
+        return real(params, cfg, prompts, **kw)
+
+    gen.generate = counting
+    return calls, lambda: setattr(gen, "generate", real)
+
+
+def phase_serving_server(card: str, kernels, cfg, params, cfg32, params32, prompts,
+                         ref32) -> dict:
+    """The serving layer above the engine. LLMEngineServer answers the 6
+    prompts (32 new tokens, max_batch 4) through __call__ and
+    stream_deltas together; LLMServer takes 8 concurrent requests at two
+    temperatures in one batch (exactly one generate call per temperature);
+    build_llm_processor maps generate over an 8-row dataset in batches of
+    4 (2 calls). 32 layers, bf16: TTFT, tokens/s and deltas per request,
+    as information. 2 layers, float32: __call__, stream and stream_deltas
+    give the aggregated engine's tokens (generate's, phase serving), and
+    LLMServer and the processor give generate's on the same batches.
+    Returns the kernel launches of the bf16 runs."""
+    import numpy as np
+
+    from ray_tpu_torch.data import from_items
+    from ray_tpu_torch.llm import LLMEngineServer, LLMServer, build_llm_processor, generate
+
+    max_tokens = 32
+    rng = np.random.default_rng(SEED + 5)
+    # LLMServer: 8 requests, greedy and sampled in turns
+    server_prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+                      for n in (24, 60, 130, 200, 256, 333, 400, 512)]
+    temps = [0.0, 0.8] * 4
+    # the processor's rows: ray_tpu.data's numpy batch format needs equal lengths
+    rows = [{"prompt_tokens": rng.integers(0, cfg.vocab_size, size=64).tolist(), "id": i}
+            for i in range(8)]
+
+    async def engine_server(c, p, paths):
+        """Each prompt through one path; returns ([(tokens, first-item ms,
+        deltas)] per prompt, wall s, the server's engine_stats)."""
+        srv = LLMEngineServer(c, p, max_batch=4, page_size=16, n_pages=512,
+                              max_seq_len=2048)
+
+        async def one(q, path):
+            req = {"prompt_tokens": q, "max_tokens": max_tokens}
+            t0, first, toks, n = time.perf_counter(), None, [], 0
+            if path == "__call__":
+                res = await srv(req)
+                if res["usage"]["completion_tokens"] != len(res["completion_tokens"]):
+                    raise AssertionError(f"__call__ usage {res['usage']}")
+                return res["completion_tokens"], None, None
+            if path == "stream":
+                async for tok in srv.stream(req):
+                    first = first or (time.perf_counter() - t0) * 1e3
+                    toks.append(tok)
+                return toks, first, None
+            async for d in srv.stream_deltas(req):
+                if d.get("done"):
+                    if d["tokens"] or d["usage"]["completion_tokens"] != len(toks):
+                        raise AssertionError(f"stream_deltas terminal delta {d}")
+                    continue
+                first = first or (time.perf_counter() - t0) * 1e3
+                toks.extend(d["tokens"])
+                n += 1
+            return toks, first, n
+
+        t0 = time.perf_counter()
+        try:
+            res = await asyncio.gather(*[one(q, path) for q, path in zip(prompts, paths)])
+        finally:
+            await srv.engine.stop()
+        return res, time.perf_counter() - t0, srv.engine_stats()
+
+    async def llm_server(c, p):
+        srv = LLMServer(c, p, max_batch_size=8)
+        t0 = time.perf_counter()
+        res = await asyncio.gather(*[
+            srv({"prompt_tokens": q, "max_tokens": max_tokens, "temperature": t})
+            for q, t in zip(server_prompts, temps)])
+        return res, time.perf_counter() - t0
+
+    def processor(c, p):
+        t0 = time.perf_counter()
+        out = build_llm_processor(c, params=p, batch_size=4, max_new_tokens=max_tokens)(
+            from_items(rows)).take_all()
+        return out, time.perf_counter() - t0
+
+    calls, restore = count_generate_calls()
+    try:
+        kernels.LAUNCHES.clear()  # the bf16 serving layer's runs start here
+        paths = ["__call__", "stream_deltas"] * 3
+        res, wall, stats = asyncio.run(engine_server(cfg, params, paths))
+        check_completions("serving_server", prompts, [r[0] for r in res], cfg, max_tokens)
+        emit({"phase": "serving_server", "server": "LLMEngineServer", "layers": cfg.n_layers,
+              "dtype": cfg.dtype, "requests": len(prompts), "paths": paths,
+              "prompt_lens": [len(q) for q in prompts],
+              "ttft_ms": [r[1] for r in res], "deltas": [r[2] for r in res],
+              "tokens_per_s": sum(len(r[0]) for r in res) / wall, "wall_s": wall,
+              "engine_stats": stats, "card": card})
+        calls.clear()
+        res, wall = asyncio.run(llm_server(cfg, params))
+        server_calls = list(calls)
+        check_completions("serving_server LLMServer", server_prompts,
+                          [r["completion_tokens"] for r in res], cfg, max_tokens)
+        batch_sizes = [r["usage"]["batch_size"] for r in res]
+        emit({"phase": "serving_server", "server": "LLMServer", "layers": cfg.n_layers,
+              "dtype": cfg.dtype, "requests": len(res), "temperatures": temps,
+              "batch_sizes": batch_sizes, "generate_calls": server_calls,
+              "latency_s": [r["usage"]["latency_s"] for r in res],
+              "tokens_per_s": len(res) * max_tokens / wall, "wall_s": wall, "card": card})
+        if not (min(batch_sizes) > 1 and sorted(server_calls) == [4, 4]):
+            raise AssertionError(f"LLMServer batches {batch_sizes}, generate calls "
+                                 f"{server_calls}; want one batch, one call per temperature")
+        calls.clear()
+        out, wall = processor(cfg, params)
+        proc_calls = list(calls)
+        check_completions("serving_server processor", [r["prompt_tokens"] for r in rows],
+                          [r["completion_tokens"].tolist() for r in out], cfg, max_tokens)
+        emit({"phase": "serving_server", "server": "build_llm_processor",
+              "layers": cfg.n_layers, "dtype": cfg.dtype, "rows": len(out),
+              "batch_size": 4, "generate_calls": proc_calls,
+              "tokens_per_s": len(out) * max_tokens / wall, "wall_s": wall, "card": card})
+        if proc_calls != [4, 4] or [int(r["id"]) for r in out] != list(range(8)):
+            raise AssertionError(f"processor generate calls {proc_calls}")
+        launches = dict(kernels.LAUNCHES)
+
+        # float32, 2 layers: token identity
+        same = {}
+        for path in ("__call__", "stream", "stream_deltas"):
+            res, _, _ = asyncio.run(engine_server(cfg32, params32, [path] * len(prompts)))
+            same[path] = [r[0] == want for r, want in zip(res, ref32)]
+        res, _ = asyncio.run(llm_server(cfg32, params32))
+        greedy = [i for i, t in enumerate(temps) if t == 0.0]
+        want = generate(params32, cfg32, [server_prompts[i] for i in greedy],
+                        max_new_tokens=max_tokens)
+        same["LLMServer"] = [res[i]["completion_tokens"] == w for i, w in zip(greedy, want)]
+        out, _ = processor(cfg32, params32)
+        want = [t for b in (rows[:4], rows[4:])
+                for t in generate(params32, cfg32, [r["prompt_tokens"] for r in b],
+                                  max_new_tokens=max_tokens)]
+        same["processor"] = [r["completion_tokens"].tolist() == w for r, w in zip(out, want)]
+    finally:
+        restore()
+    emit({"phase": "serving_server_f32", "layers": 2, "equal": same})
+    if not all(all(v) for v in same.values()):
+        raise AssertionError(f"f32 serving layer differs from the engine/generate: {same}")
+    return launches
+
+
+def check_shipped_pages(cfg, params, prompts, kv_dtypes) -> list:
+    """Admit ``prompts`` into an engine per kv_dtype, export every live
+    request's pages and hold each shipped page, and each adopted stack,
+    against the pool rows bit for bit. Returns one row per kv_dtype."""
+    import torch
+
+    from ray_tpu_torch.llm.disagg import adopt_pages
+    from ray_tpu_torch.llm.disagg.kv_plane import _from_host
+
+    rows = []
+    for kv in kv_dtypes:
+        eng, pages = prefill_pages(cfg, params, prompts, kv)
+        same, n = True, 0
+        for req, pg in zip(eng.slot_req, pages):
+            m = eng.export_pages(req.req_id)
+            stacks = adopt_pages(m)
+            for side, pool, stack in (("k", eng.kpool, stacks[0]), ("v", eng.vpool, stacks[1])):
+                parts = pool if isinstance(pool, dict) else {"": pool}
+                for name, t in parts.items():
+                    want = t[:, torch.tensor(pg, device="cuda")].cpu()
+                    got = stack[name] if name else stack
+                    same = same and torch.equal(got, want)
+                    for i in range(len(pg)):
+                        arr = m.pages[i].refs[side if not name else f"{side}.{name}"]
+                        same = same and torch.equal(_from_host(arr), want[:, i])
+            n += len(pg)
+        del eng
+        rows.append({"layers": cfg.n_layers, "dtype": cfg.dtype, "kv_dtype": kv or "native",
+                     "pages": n, "bit_exact": same})
+    return rows
+
+
+def phase_serving_disagg(card: str, kernels, cfg, params, cfg32, params32, prompts, ref32,
+                         agg_ttft) -> dict:
+    """In-process disaggregated serving. PrefillWorker prefills the 6
+    prompts in one wave, each manifest is adopted by a DecodeWorker
+    (decode_adopted; the same workers share the weights); then the cache
+    leg: an aggregated engine's export_pages of each live request,
+    PrefixCache.insert, lookup, a suffix prefill over the cached pages and
+    decode_adopted(prefix, suffix). 2 layers, float32: both legs give the
+    aggregated engine's tokens; shipped pages and adopted stacks equal
+    their pool rows bit for bit for native, bf16 and int8 pools (and the
+    bf16 native pool at 32 layers). 32 layers, bf16: the wave's ms, the
+    ship and adopt ms and bytes from the telemetry, adopted TTFT (through
+    decode_adopted_stream, the 6 together and each alone) against the
+    aggregated engine's TTFT (phase serving), decode tokens/s, and the
+    cached leg's suffix wave timed apart from its decodes. Returns the
+    kernel launches of the bf16 runs."""
+    from ray_tpu_torch.llm import ContinuousBatchingEngine
+    from ray_tpu_torch.llm.disagg import DecodeWorker, PrefillWorker, PrefixCache, telemetry
+
+    max_tokens, PS = 32, 16
+
+    async def run(c, p, info):
+        pf = PrefillWorker(c, p, page_size=PS, n_pages=512, max_wave=8)
+        dw = DecodeWorker(c, p, max_batch=4, page_size=PS, n_pages=512, max_seq_len=2048)
+        telemetry.reset_counters()
+        ship0 = len(telemetry.stage_window(telemetry.KV_SHIP))
+        queue0 = len(telemetry.stage_window(telemetry.DECODE_QUEUE))
+
+        def window_ms(stage, start):
+            return [x / 1e6 for x in telemetry.stage_window(stage)[start:]]
+
+        row = {}
+        try:
+            t0 = time.perf_counter()
+            res = await asyncio.gather(*[pf.prefill(q) for q in prompts])
+            row["prefill_wave_ms"] = (time.perf_counter() - t0) * 1e3
+            row["waves"] = pf.waves
+            row["ship_ms"] = window_ms(telemetry.KV_SHIP, ship0)
+            shipped = telemetry.counters()
+            row["ship_bytes"], row["pages_shipped"] = (shipped["kv_array_bytes"],
+                                                       shipped["pages_shipped"])
+            t0 = time.perf_counter()
+            full = await asyncio.gather(*[
+                dw.decode_adopted(q, m, None, first, max_tokens=max_tokens)
+                for q, (m, first) in zip(prompts, res)])
+            wall = time.perf_counter() - t0
+            row["adopt_ms"] = window_ms(telemetry.KV_SHIP, ship0 + len(prompts))
+            row["adopt_bytes"] = telemetry.counters()["kv_array_bytes"] - row["ship_bytes"]
+            row["pages_adopted"] = telemetry.counters()["pages_adopted"]
+            row["decode_queue_ms"] = window_ms(telemetry.DECODE_QUEUE, queue0)
+            row["decode_tokens_per_s"] = sum(len(o) for o in full) / wall
+            if info:  # adopted TTFT: call to first delta, the same manifests again
+                async def stream_ttft(q, m, first):
+                    t0, ttft = time.perf_counter(), None
+                    async for _ in dw.decode_adopted_stream(q, m, None, first,
+                                                            max_tokens=max_tokens):
+                        ttft = ttft or (time.perf_counter() - t0) * 1e3
+                    return ttft
+
+                row["adopted_ttft_ms"] = await asyncio.gather(*[
+                    stream_ttft(q, m, first) for q, (m, first) in zip(prompts, res)])
+                # one request at a time into an idle engine: adoption's own cost
+                row["adopted_ttft_alone_ms"] = [await stream_ttft(q, m, first)
+                                                for q, (m, first) in zip(prompts, res)]
+            del res
+
+            # the cache leg: pages exported from a live aggregated request
+            eng = ContinuousBatchingEngine(p, c, max_batch=4, page_size=PS, n_pages=512,
+                                           max_seq_len=2048, eos_id=c.vocab_size)
+            cache = PrefixCache(PS, capacity_bytes=1 << 34)
+            await eng.start()
+
+            async def source(q):
+                rid, out = eng.submit(q, max_tokens=max_tokens), []
+                async for blk in eng.stream_blocks(rid):
+                    if not out:
+                        cache.insert(eng.export_pages(rid))
+                    out.extend(blk)
+                return out
+
+            try:
+                agg = await asyncio.gather(*[source(q) for q in prompts])
+            finally:
+                await eng.stop()
+            del eng
+
+            async def cached_prefill(q):
+                """(the cached prefix or None, the manifest this call
+                produced, the first token, the call's ms)."""
+                pre = cache.lookup(q, max_tokens=len(q) - 1)
+                t0 = time.perf_counter()
+                if pre is None:  # under one full page to share
+                    m, first = await pf.prefill(q)
+                else:
+                    m, first = await pf.prefill(q[pre.n_tokens:], prefix=pre)
+                return pre, m, first, (time.perf_counter() - t0) * 1e3
+
+            # the suffix wave alone, then the decodes: a decode block holds the
+            # event loop, so timing the two interleaved would time the decode
+            waves0, t0 = pf.waves, time.perf_counter()
+            legs = await asyncio.gather(*[cached_prefill(q) for q in prompts])
+            row["suffix_wave_ms"] = (time.perf_counter() - t0) * 1e3
+            row["suffix_waves"] = pf.waves - waves0
+            row["suffix_prefill_ms"] = [ms if pre else None for pre, _, _, ms in legs]
+            try:
+                via_cache = await asyncio.gather(*[
+                    dw.decode_adopted(q, pre or m, m if pre else None, first,
+                                      max_tokens=max_tokens)
+                    for q, (pre, m, first, _) in zip(prompts, legs)])
+            finally:
+                for pre, *_ in legs:
+                    cache.release(pre)
+            row["cache"] = cache.stats()
+            row["free_staging_pages"] = len(pf.free_pages)
+        finally:
+            await dw.stop()
+        return full, via_cache, agg, row
+
+    kernels.LAUNCHES.clear()  # the bf16 disagg runs start here
+    full, cached, agg, row = asyncio.run(run(cfg, params, True))
+    launches = dict(kernels.LAUNCHES)
+    check_completions("serving_disagg", prompts, full + cached, cfg, max_tokens)
+    emit({"phase": "serving_disagg", "layers": cfg.n_layers, "dtype": cfg.dtype,
+          "prompt_lens": [len(q) for q in prompts], **row,
+          "aggregated_ttft_ms": agg_ttft,
+          "agreement_full_vs_aggregated": agreement(full, agg),
+          "agreement_cached_vs_aggregated": agreement(cached, agg), "card": card})
+    pages = check_shipped_pages(cfg, params, prompts, [None])
+
+    full32, cached32, agg32, row32 = asyncio.run(run(cfg32, params32, False))
+    pages += check_shipped_pages(cfg32, params32, prompts, [None, "bf16", "int8"])
+    same = {"full": [o == r for o, r in zip(full32, ref32)],
+            "cached": [o == r for o, r in zip(cached32, ref32)],
+            "source": [o == r for o, r in zip(agg32, ref32)]}
+    emit({"phase": "serving_disagg_f32", "layers": 2, "equal_to_aggregated": same,
+          "cache": row32["cache"], "shipped_pages": pages})
+    if not all(all(v) for v in same.values()):
+        raise AssertionError(f"f32 disagg differs from the aggregated engine: {same}")
+    if not all(r["bit_exact"] for r in pages):
+        raise AssertionError(f"shipped pages differ from their pool rows: {pages}")
+    if row32["cache"]["hits"] < len(prompts) - 1 or row32["free_staging_pages"] != 511:
+        raise AssertionError(f"cache leg: {row32['cache']}, staging pages free "
+                             f"{row32['free_staging_pages']}")
+    return launches
+
+
 def profile_step(fn, card: str) -> dict:
     """One call of ``fn`` under torch.profiler: device time by kernel group
     (flash kernels, matrix products, the rest), each flash kernel's time, the
@@ -1052,12 +1489,19 @@ def main() -> int:
           "params": tree_numel(params)})
     tokens = torch.randint(0, cfg.vocab_size, (2, 2049), generator=g, device="cuda")
     launches, cfg32, params32 = phase_forward(card, kernels, cfg, params, tokens)
-    serve_launches, prompts, planned, ref32 = phase_serving(card, kernels, cfg, params,
-                                                            cfg32, params32)
+    serve_launches, prompts, planned, planned_ttft, ref32 = phase_serving(
+        card, kernels, cfg, params, cfg32, params32)
     phase_serving_int8(card, cfg, params, cfg32, params32, prompts, planned, ref32)
     phase_serving_spec(card, cfg, params, cfg32, params32, prompts)
     phase_serving_adopt(card, cfg, params, cfg32, params32, prompts)
+    layer_launches = phase_serving_server(card, kernels, cfg, params, cfg32, params32,
+                                          prompts, ref32)
+    disagg_launches = phase_serving_disagg(card, kernels, cfg, params, cfg32, params32,
+                                           prompts, ref32, planned_ttft)
     del params, params32, tokens
+    # LLMServer (its batch queue holds its bound method) and PrefillWorker
+    # sit in reference cycles that hold the weights until a collection
+    gc.collect()
     torch.cuda.empty_cache()
     train_launches = phase_train(card, kernels, k)
 
@@ -1071,7 +1515,9 @@ def main() -> int:
                # the forward's main path is the forward phase; the backward's, training
                "launches": launches if name == "flash_attention_fwd" else train_launches[name],
                "train_launches": train_launches[name],
-               "serving_launches": serve_launches.get(name, 0), **k[name]}
+               "serving_launches": serve_launches.get(name, 0),
+               "serving_layer_launches": layer_launches.get(name, 0)
+               + disagg_launches.get(name, 0), **k[name]}
         if name != "flash_attention_fwd":
             row["plain_and_library_cover"] = "dq+dkv"
         rows.append(row)

@@ -16,11 +16,12 @@ JAX engine's:
 * **int8 pools** (``kv_dtype="int8"``): a pool is a ``{"q": int8, "s":
   float32}`` dict, quantized symmetrically per (token, kv-head) and read
   back through dequantization.
-* **Page adoption.** ``submit_prefilled`` admits a request whose prompt
-  KV was computed elsewhere: ``scatter_pages`` writes the adopted stacks
-  into the slot's fresh pages, and no prefill runs.
+* **Page adoption and export.** ``submit_prefilled`` admits a request
+  whose prompt KV was computed elsewhere: ``scatter_pages`` writes the
+  adopted stacks into the slot's fresh pages, and no prefill runs.
   ``paged_prefill_suffix`` prefills a prompt's suffix over prefix pages
-  already in the pool.
+  already in the pool. ``export_pages`` copies a live request's prompt
+  pages out as a ``KVPageManifest`` (``llm/disagg/kv_plane.py``).
 * **Fused decode blocks.** ``paged_decode_multi`` runs K steps with the
   (token, position) carry kept on the device and no host sync inside a
   block; the host reads a block's tokens through an asynchronous copy
@@ -31,8 +32,6 @@ JAX engine's:
   the emitted tokens equal the plain engine's greedy tokens.
 * **LoRA multiplex**: stacked low-rank adapters on the q/v projections,
   selected per slot (adapter 0 = base model).
-
-Not in this slice: ``export_pages`` (ROADMAP, PyTorch/CUDA port: disagg).
 """
 from __future__ import annotations
 
@@ -701,11 +700,21 @@ class ContinuousBatchingEngine:
         return self._enqueue(req)
 
     def export_pages(self, req_id: int):
-        """Page export (a live request's prompt KV pages shipped to the
-        cross-request cache) needs the shm arena and the object plane."""
-        raise NotImplementedError(
-            "export_pages waits for the disagg slice (ROADMAP, PyTorch/CUDA "
-            "port: Queue 1, Disagg)")
+        """Copy a LIVE request's prompt KV pages to host memory and return
+        their ``KVPageManifest``: how an aggregated engine donates a prefix
+        to the cross-request cache. Must be called while the request still
+        holds its slot (prompt positions are stable once prefilled; decode
+        writes land past them, and the copy is queued after them on the
+        pool's stream). Raises ``KeyError`` for a request holding no slot."""
+        from ray_tpu_torch.llm.disagg.kv_plane import ship_pages
+
+        req = self._reqs.get(req_id)
+        if req is None or req.slot < 0:
+            raise KeyError(f"request {req_id} is not holding a slot")
+        n_cover = -(-len(req.prompt) // self.PS)
+        page_ids = [int(p) for p in self.page_tables[req.slot, :n_cover]]
+        return ship_pages(self.kpool, self.vpool, page_ids, req.prompt,
+                          page_size=self.PS, kv_dtype=self.kv_dtype)
 
     def tokens_in_flight(self) -> int:
         """Decode tokens this engine still owes: remaining scheduled

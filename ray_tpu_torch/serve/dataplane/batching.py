@@ -1,0 +1,104 @@
+"""AIMD batch-size control for @serve.batch (Clipper-style).
+
+Clipper (Crankshaw et al., NSDI'17) showed that a latency-feedback
+adaptive batch size beats any static ``max_batch_size`` knob: the right
+batch is a moving target set by the model, the hardware, and the
+co-located load. The controller here is AIMD, the same shape TCP uses
+for the same reason (probe an unknown, shifting capacity):
+
+- **additive increase**: while the measured batch p99 stays under
+  ``headroom × latency_slo_ms`` AND demand actually fills the current
+  cap (no point growing a cap the queue never reaches), raise the
+  effective batch cap by 1, up to ``hard_cap``.
+- **multiplicative decrease**: on a p99 breach of the SLO budget, halve
+  the cap (floor 1) and restart the measurement window — the old
+  samples describe a batch size we just abandoned.
+
+Without a ``latency_slo_ms`` the controller is inert: the effective cap
+is the configured ``max_batch_size``, observations only feed stats.
+"""
+from __future__ import annotations
+
+import collections
+import math
+
+
+def _p99(vals) -> float:
+    """Nearest-rank p99 (the repo-wide convention; bench.py, recorder)."""
+    s = sorted(vals)
+    return s[max(0, math.ceil(len(s) * 0.99) - 1)]
+
+
+class AIMDBatchController:
+    """One per batch queue; all methods run on that queue's event loop
+    (no locking needed — observations and reads are loop-serialized)."""
+
+    def __init__(self, max_batch_size: int, latency_slo_ms: float | None = None,
+                 hard_cap: int | None = None, window: int = 32,
+                 headroom: float = 0.8, adjust_every: int = 4):
+        if max_batch_size < 1:
+            raise ValueError("max_batch_size must be >= 1")
+        self.initial = max_batch_size
+        self.slo_ms = latency_slo_ms
+        #: growth ceiling: adaptive batching may grow PAST the configured
+        #: max_batch_size while the SLO budget holds (that is the point);
+        #: default ceiling 8x the configured value
+        self.hard_cap = hard_cap if hard_cap else max_batch_size * 8
+        self.hard_cap = max(self.hard_cap, max_batch_size)
+        self.headroom = headroom
+        self.adjust_every = max(1, adjust_every)
+        self._cur = max_batch_size
+        self._lat_ms: collections.deque = collections.deque(maxlen=window)
+        self._since_adjust = 0
+        self._filled_since_adjust = False
+        # lifetime stats (replica get_metrics -> bench/dashboard)
+        self.batches = 0
+        self.requests = 0
+        self.grows = 0
+        self.cuts = 0
+
+    @property
+    def current(self) -> int:
+        """The effective batch cap right now."""
+        return self._cur
+
+    def observe(self, batch_size: int, latency_ms: float) -> None:
+        """Feed one completed batch (size, wall ms) and maybe adjust."""
+        self.batches += 1
+        self.requests += batch_size
+        if self.slo_ms is None:
+            return
+        self._lat_ms.append(latency_ms)
+        self._since_adjust += 1
+        if batch_size >= self._cur:
+            self._filled_since_adjust = True
+        if self._since_adjust < self.adjust_every:
+            return
+        p99 = _p99(self._lat_ms)
+        if p99 > self.slo_ms:
+            cut = max(1, self._cur // 2)
+            if cut != self._cur:
+                self._cur = cut
+                self.cuts += 1
+            # old samples describe the abandoned batch size
+            self._lat_ms.clear()
+        elif (p99 <= self.headroom * self.slo_ms
+                and self._filled_since_adjust
+                and self._cur < self.hard_cap):
+            self._cur += 1
+            self.grows += 1
+        self._since_adjust = 0
+        self._filled_since_adjust = False
+
+    def stats(self) -> dict:
+        out = {
+            "max_batch_size": self._cur,
+            "batches": self.batches,
+            "avg_batch": self.requests / self.batches if self.batches else 0.0,
+            "grows": self.grows,
+            "cuts": self.cuts,
+        }
+        if self.slo_ms is not None and self._lat_ms:
+            out["batch_p99_ms"] = _p99(self._lat_ms)
+            out["latency_slo_ms"] = self.slo_ms
+        return out

@@ -168,12 +168,14 @@ def test_sampled_rows_leave_greedy_rows_exact(models):
 
 
 def test_unsupported_options_raise(models):
-    """Only export_pages still waits for a later slice; int8 pools and
-    speculative decoding build, and bad inputs raise before any launch."""
+    """Every engine option builds (int8 pools, speculative decoding), and
+    bad inputs raise before any launch: export_pages of a request that
+    holds no slot, an out-of-vocab first token or prompt, an unknown
+    kv_dtype."""
     _, _, cfg, params, _ = models
     eng = ContinuousBatchingEngine(params, cfg, kv_dtype="int8", spec_enable=True)
     assert eng.kpool["q"].dtype == torch.int8 and eng.vpool["s"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP.*[Dd]isagg"):
+    with pytest.raises(KeyError, match="not holding a slot"):
         eng.export_pages(1)
     with pytest.raises(ValueError, match="vocab"):
         stack = torch.zeros((cfg.n_layers, 1, 16, cfg.n_kv_heads, cfg.head_dim))

@@ -302,3 +302,34 @@ def test_tokens_in_flight_with_spec(models):
     hr0, hr1, out = asyncio.run(go())
     assert hr0["tokens_in_flight"] == 8  # owed while the request ran
     assert hr1["tokens_in_flight"] == 0 and len(out) == 8
+
+
+def test_bf16_spec_equals_plain_in_both_packages():
+    """bf16 at the spec tests' width (vocab 512, d_model 128, 2 layers, 4
+    heads, page size 8), four requests of 32 greedy tokens: JAX's spec
+    engine gives JAX's plain engine's tokens, and the port's spec engine
+    the port's plain engine's. The two packages' bf16 tokens may part at
+    greedy near-ties (one bf16 step of a logit), so each is held to its own
+    plain engine."""
+    cfg16 = dict(CFG, dtype="bfloat16")
+    jcfg = jllama.LlamaConfig(**cfg16)
+    jparams = jllama.llama_init(jax.random.PRNGKey(0), jcfg)
+    tcfg = tllama.LlamaConfig(**cfg16)
+    params = tllama.params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg,
+                                      device="cpu")
+    rng = np.random.default_rng(3)
+    calls = [(p, {"max_tokens": 32}) for p in (
+        _repetitive_prompt(30), list(map(int, rng.integers(1, 512, 19))),
+        _repetitive_prompt(20, seed=2), list(map(int, rng.integers(1, 512, 12))))]
+    kw = dict(max_batch=4, page_size=PS, n_pages=128, max_seq_len=256)
+    jplain = _run(JEngine(jparams, jcfg, **kw), calls)
+    jeng_spec = JEngine(jparams, jcfg, spec_enable=True, spec_k=4, **kw)
+    jspec = _run(jeng_spec, calls)
+    tplain = _run(_engine(tcfg, params), calls)
+    teng_spec = _engine(tcfg, params, spec_enable=True, spec_k=4)
+    tspec = _run(teng_spec, calls)
+    assert all(len(o) == 32 for o in jplain + tplain)
+    assert jspec == jplain
+    assert tspec == tplain
+    assert teng_spec.spec_stats()["spec_proposed"] > 0
+    assert jeng_spec.spec_stats()["spec_proposed"] > 0

@@ -10,9 +10,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
-               "ray_tpu_torch.llm", "ray_tpu_torch.parallel",
-               "ray_tpu_torch.utils", "ray_tpu_torch.entry",
-               "ray_tpu_torch.kernels"]
+               "ray_tpu_torch.llm", "ray_tpu_torch.llm.disagg",
+               "ray_tpu_torch.serve", "ray_tpu_torch.data",
+               "ray_tpu_torch.parallel", "ray_tpu_torch.utils",
+               "ray_tpu_torch.entry", "ray_tpu_torch.kernels"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
@@ -40,6 +41,10 @@ def _sources():
 
 def test_source_scan_finds_no_jax_or_ray_tpu_import():
     found = []
+    scanned = {os.path.relpath(os.path.dirname(p), ROOT) for p in _sources()}
+    for sub in SUBPACKAGES:  # every subpackage directory is scanned
+        if os.path.isdir(os.path.join(ROOT, *sub.split("."))):
+            assert os.path.join(*sub.split(".")) in scanned, sub
     for path in _sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -65,3 +70,16 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_llm_exports_match_jax():
+    """ray_tpu_torch.llm exports every name of ray_tpu.llm but the
+    scheduler's two, which ride on the JAX package's actor runtime."""
+    import ray_tpu.llm as jllm
+
+    import ray_tpu_torch.llm as tllm
+
+    assert set(tllm.__all__) == set(jllm.__all__) - {"DisaggLLMServer",
+                                                     "build_disagg_deployment"}
+    assert all(hasattr(tllm, n) for n in tllm.__all__)
+    assert tllm.prefix_hint is not None
