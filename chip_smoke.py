@@ -70,6 +70,31 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               finite and falling;
               and a 2-layer float32 model at full width, T=2048, whose
               per-leaf gradients agree with plain attention (<= 1e-3).
+6. moe_forward — with the dense weights freed: llama3_8b_switch8 (Llama-3-8B
+              widths, 8 top-1 experts in every second layer, capacity factor
+              1.25), all 32 layers, bf16, tokens [2, 2048]: the flash forward
+              must launch once per layer (layers 0-1 bf16, 2-31 float32 after
+              the MoE promotion, as in JAX), the logits must be float32, aux
+              finite and > 0; peak memory and launches are read on that
+              forward alone. A second forward records its routing (Routing),
+              and attn_impl="plain" replaying it must give logits within
+              relative L2 3e-2. Printed beside: plain on its own routing, and
+              a second correct attention (SDPA) against plain, free-running
+              and on its own routing replayed; median forward ms against
+              plain, the share of tokens each MoE layer drops at capacity;
+              and a 2-layer float32 MoE model at full width within 1e-4 of
+              plain.
+7. moe_train — llama3_8b_switch8 cut to 8 layers, bf16, remat, AdamW (lr
+              1e-4): one step's gradients with "auto" against "plain" on the
+              same routing (loss within 3e-2, every leaf's relative L2 <=
+              3e-2; SDPA against plain printed beside, as in moe_forward),
+              then one warm-up step and TRAIN_STEPS (20) timed steps
+              launching 8/8/8 kernels each, the loss finite and falling.
+8. parallel — one NCCL process group of world size 1 in this process (file
+              rendezvous in a temp dir) and its DeviceMesh: ring_attention,
+              ulysses_attention, pipeline_apply, moe_ffn (ep=1) and
+              llama_pp_loss (pp=1) each equal their local counterpart on the
+              card within 2e-5 at float32; the group is destroyed.
 
 Then the {"kernels": [...]} line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -452,9 +477,9 @@ def phase_forward(card: str, kernels, cfg, params, tokens):
         llama_forward(params, inputs[:, :1024], cfg)  # warm-up (cuBLAS, allocator)
         kernels.LAUNCHES.clear()  # the main path starts here
         logits, _ = llama_forward(params, inputs, cfg, attn_impl="auto")
-        fwd_launches = kernels.LAUNCHES[K]
+        fwd_launches = kernels.launches()[K]
         loss, loss_ms = timed(lambda: llama_loss(params, {"tokens": tokens}, cfg))
-        launches = kernels.LAUNCHES[K]
+        launches = kernels.launches()[K]
         if fwd_launches != cfg.n_layers or launches != 2 * cfg.n_layers:
             raise AssertionError(f"flash kernel launches {fwd_launches}/{launches}, "
                                  f"want {cfg.n_layers} per forward")
@@ -570,7 +595,7 @@ def phase_serving(card: str, kernels, cfg, params, cfg32, params32):
               "eos_id": eos, "requests": len(prompts), "prompt_lens": list(lens),
               "completion_lens": [len(o) for o in outs], "ttft_ms": ttft,
               "tokens_per_s": n_tok / wall, "wall_s": wall, "card": card})
-    serve_launches = dict(kernels.LAUNCHES)
+    serve_launches = dict(kernels.launches())
 
     ref = generate(params32, cfg32, prompts, max_new_tokens=max_tokens)
     for loop, eos in (("planned", None), ("reactive", -1)):
@@ -1105,7 +1130,7 @@ def phase_serving_server(card: str, kernels, cfg, params, cfg32, params32, promp
               "tokens_per_s": len(out) * max_tokens / wall, "wall_s": wall, "card": card})
         if proc_calls != [4, 4] or [int(r["id"]) for r in out] != list(range(8)):
             raise AssertionError(f"processor generate calls {proc_calls}")
-        launches = dict(kernels.LAUNCHES)
+        launches = dict(kernels.launches())
 
         # float32, 2 layers: token identity
         same = {}
@@ -1282,7 +1307,7 @@ def phase_serving_disagg(card: str, kernels, cfg, params, cfg32, params32, promp
 
     kernels.LAUNCHES.clear()  # the bf16 disagg runs start here
     full, cached, agg, row = asyncio.run(run(cfg, params, True))
-    launches = dict(kernels.LAUNCHES)
+    launches = dict(kernels.launches())
     check_completions("serving_disagg", prompts, full + cached, cfg, max_tokens)
     emit({"phase": "serving_disagg", "layers": cfg.n_layers, "dtype": cfg.dtype,
           "prompt_lens": [len(q) for q in prompts], **row,
@@ -1377,10 +1402,13 @@ def phase_train(card: str, kernels, k: dict) -> dict:
     num = sum(float(((a.float() - b.float()) ** 2).sum()) for a, b in zip(ga, gp))
     den = sum(float((b.float() ** 2).sum()) for b in gp)
     grad_rel = math.sqrt(num / den)
+    # per leaf, as the MoE train phase checks (information here)
+    worst, worst_leaf = leaf_rel_l2([n for n, _ in _named_leaves(params)], ga, gp)
     del ga, gp
     emit({"phase": "train_grads", "layers": cfg.n_layers, "dtype": cfg.dtype,
           "loss_auto": float(loss_a), "loss_plain": float(loss_p),
-          "grad_rel_l2_vs_plain": grad_rel, "tol": 3e-2})
+          "grad_rel_l2_vs_plain": grad_rel, "tol": 3e-2,
+          "worst_leaf_rel_l2_vs_plain": worst, "worst_leaf": worst_leaf})
     if not (abs(float(loss_a) - float(loss_p)) <= 3e-2 and grad_rel <= 3e-2):
         raise AssertionError(f"bf16 gradients disagree with plain attention: {grad_rel}")
 
@@ -1390,12 +1418,13 @@ def phase_train(card: str, kernels, k: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     kernels.LAUNCHES.clear()  # the main path starts here
     for _ in range(TRAIN_STEPS):
-        before = dict(kernels.LAUNCHES)
+        before = kernels.launches()
         (params, state, loss), ms = timed(lambda: step(params, state, batch))
-        per_step.append({n: kernels.LAUNCHES[n] - before.get(n, 0) for n in kernels.KERNELS})
+        now = kernels.launches()
+        per_step.append({n: now[n] - before[n] for n in kernels.KERNELS})
         losses.append(float(loss))
         step_ms.append(ms)
-    launches = dict(kernels.LAUNCHES)
+    launches = dict(kernels.launches())
     peak = torch.cuda.max_memory_allocated()
     want = {n: cfg.n_layers for n in kernels.KERNELS}
     if any(c != want for c in per_step):
@@ -1456,6 +1485,376 @@ def phase_train(card: str, kernels, k: dict) -> dict:
     return launches
 
 
+class Routing:
+    """Records what every ``top1_gating`` call routes, or replays a record.
+
+    With random weights a bf16 MoE model routes chaotically: a token whose
+    top two gate probabilities tie in bf16 can go to another expert when the
+    attention before it changes in its last bits, and at capacity that
+    shifts which later tokens are dropped, which moves every later layer.
+    So the comparison of the flash kernel with plain attention replays the
+    kernel run's routing in the plain run: each call's dispatch and density
+    are the recorded ones, combine is dispatch times this run's gate
+    probabilities. Runs must make the same calls in the same order (a
+    remat backward's recompute included)."""
+
+    def __init__(self, replay=None):
+        self.calls, self.replay = [], replay
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+
+        import ray_tpu_torch.parallel.moe as moe
+
+        self._moe, self._orig = moe, moe.top1_gating
+        orig = self._orig
+
+        def gating(logits, n_experts, capacity, **kw):
+            dispatch, combine, aux = orig(logits, n_experts, capacity, **kw)
+            probs = torch.softmax(logits, dim=-1)
+            if self.replay is not None:
+                dispatch, density = self.replay.calls[len(self.calls)]
+                combine = dispatch * probs[..., None]
+                aux = (density * probs.mean(dim=0)).sum() * n_experts
+            else:
+                density = F.one_hot(probs.argmax(-1), n_experts).float().mean(dim=0)
+            self.calls.append((dispatch.detach(), density))
+            return dispatch, combine, aux
+
+        moe.top1_gating = gating
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.top1_gating = self._orig
+
+    def kept(self) -> list:
+        """Tokens each call kept."""
+        return [float(d.sum()) for d, _ in self.calls]
+
+    def agreement(self, other) -> list:
+        """Per call, the share of tokens routed alike (same expert, or
+        dropped in both)."""
+        out = []
+        for (a, _), (b, _) in zip(self.calls, other.calls):
+            out.append(float((a.sum(-1) == b.sum(-1)).all(-1).float().mean()))
+        return out
+
+
+class SdpaAsPlain:
+    """Runs ``attn_impl="plain"`` through PyTorch's SDPA: a second correct
+    attention, to show how far two correct attentions drift apart in a
+    random-weight bf16 MoE model, free-running and with routing replayed."""
+
+    def __enter__(self):
+        import importlib
+
+        import torch.nn.functional as F
+
+        # the module, which ray_tpu_torch.ops shadows with its function
+        att = importlib.import_module("ray_tpu_torch.ops.attention")
+        self._att, self._orig = att, att.reference_attention
+
+        def sdpa(q, k, v, *, causal=True, sm_scale=None):
+            out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                 v.transpose(1, 2), is_causal=causal,
+                                                 scale=sm_scale)
+            return out.transpose(1, 2).contiguous()
+
+        att.reference_attention = sdpa
+        return self
+
+    def __exit__(self, *exc):
+        self._att.reference_attention = self._orig
+
+
+def phase_moe_forward(card: str, kernels) -> dict:
+    """llama3_8b_switch8, 32 layers, bf16. Returns the flash forward's
+    launches on the main path, by dtype."""
+    import statistics
+
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_forward, llama_init
+
+    K = "flash_attention_fwd"
+    cfg = LlamaConfig.llama3_8b_switch8()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    params, init_ms = timed(lambda: llama_init(g, cfg, "cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2048), generator=g, device="cuda")
+    n_tok = tokens.numel()
+
+    with torch.inference_mode():
+        llama_forward(params, tokens, cfg)  # warm-up (cuBLAS, allocator)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.LAUNCHES.clear()  # the main path starts here
+        (logits, aux), main_ms = timed(lambda: llama_forward(params, tokens, cfg))
+        launches = dict(kernels.launches())
+        by_dtype = {f"{n}:{dt}": c for (n, dt), c in kernels.LAUNCHES.items()}
+        peak = torch.cuda.max_memory_allocated()
+        if launches.get(K) != cfg.n_layers or len(launches) != 1:
+            raise AssertionError(f"kernel launches {launches}, want {cfg.n_layers} of {K}")
+        if by_dtype != {f"{K}:bfloat16": 2, f"{K}:float32": cfg.n_layers - 2}:
+            raise AssertionError(f"flash launches by dtype {by_dtype}: want layers 0-1 "
+                                 "bf16 and the rest float32 after the MoE promotion")
+        if logits.dtype != torch.float32 or tuple(logits.shape) != (*tokens.shape,
+                                                                   cfg.vocab_size):
+            raise AssertionError(f"logits {logits.dtype} {tuple(logits.shape)}")
+        if not bool(torch.isfinite(logits).all()) or not (math.isfinite(float(aux))
+                                                          and float(aux) > 0):
+            raise AssertionError(f"non-finite logits or aux {float(aux)}")
+        # the routing of the same forward, recorded apart from the main path
+        with Routing() as auto_routes:
+            recorded, _ = llama_forward(params, tokens, cfg)
+        recorded_err = rel_l2(recorded, logits)
+        del recorded
+        with Routing() as free_routes:  # plain attention, its own routing
+            plain, plain_aux = llama_forward(params, tokens, cfg, attn_impl="plain")
+        free_err = rel_l2(logits, plain)
+        # a second correct attention, free-running and on its own routing replayed
+        with SdpaAsPlain(), Routing() as sdpa_routes:
+            sdpa, _ = llama_forward(params, tokens, cfg, attn_impl="plain")
+        sdpa_free_err = rel_l2(sdpa, plain)
+        del plain
+        with Routing(replay=sdpa_routes):
+            plain, _ = llama_forward(params, tokens, cfg, attn_impl="plain")
+        sdpa_err = rel_l2(sdpa, plain)
+        del sdpa, plain
+        with Routing(replay=auto_routes):  # plain attention, the kernel run's routing
+            plain, forced_aux = llama_forward(params, tokens, cfg, attn_impl="plain")
+        err = rel_l2(logits, plain)
+        del logits, plain
+        fwd_ms = {"auto": [], "plain": []}
+        for impl in ("plain", "auto", "auto", "plain", "plain", "auto"):  # in turns
+            _, ms = timed(lambda: llama_forward(params, tokens, cfg, attn_impl=impl)[0].sum())
+            fwd_ms[impl].append(ms)
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+    C = max(1, int(cfg.capacity_factor * n_tok / E))
+    n_moe = cfg.n_layers // cfg.moe_every
+    # float32 products of the MoE layers: the dispatch and combine einsums
+    # and the two expert products, 2 operations per multiply-add
+    moe_ops = n_moe * (2 * 2 * n_tok * E * C * D + 2 * 2 * E * C * D * F)
+    emit({"phase": "moe_forward", "config": "llama3_8b_switch8", "layers": cfg.n_layers,
+          "dtype": cfg.dtype, "tokens": list(tokens.shape), "params": tree_numel(params),
+          "init_s": init_ms / 1e3, "main_path_ms": main_ms,
+          "forward_ms": fwd_ms["auto"], "forward_plain_ms": fwd_ms["plain"],
+          "forward_ms_median": statistics.median(fwd_ms["auto"]),
+          "forward_plain_ms_median": statistics.median(fwd_ms["plain"]),
+          "flash_launches": launches.get(K), "flash_launches_by_dtype": by_dtype,
+          "aux": float(aux), "aux_plain_forced_routing": float(forced_aux),
+          "aux_plain_free": float(plain_aux), "capacity": C,
+          "dropped_share_per_moe_layer": [1 - k / n_tok for k in auto_routes.kept()],
+          "logits_dtype": "float32",
+          "logits_rel_l2_vs_plain_same_routing": err, "tol": 3e-2,
+          "logits_rel_l2_vs_plain_free": free_err,
+          "routing_agreement_free_per_moe_layer": auto_routes.agreement(free_routes),
+          "logits_rel_l2_recorded_vs_main": recorded_err,
+          "sdpa_logits_rel_l2_vs_plain_free": sdpa_free_err,
+          "sdpa_logits_rel_l2_vs_plain_same_routing": sdpa_err,
+          "sdpa_routing_agreement_free_per_moe_layer": sdpa_routes.agreement(free_routes),
+          "max_memory_allocated": peak, "moe_f32_ops": moe_ops,
+          "moe_f32_bound_ms": moe_ops / H100_F32_FLOPS * 1e3, "card": card})
+    if not err <= 3e-2:
+        raise AssertionError(f"bf16 MoE forward disagrees with plain attention: {err}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    params32 = llama_init(g, cfg32, "cuda")
+    with torch.inference_mode():
+        a, aux_a = llama_forward(params32, tokens, cfg32, attn_impl="auto")
+        b, aux_b = llama_forward(params32, tokens, cfg32, attn_impl="plain")
+        err32 = rel_l2(a, b)
+    emit({"phase": "moe_forward_f32", "layers": 2, "logits_rel_l2_vs_plain": err32,
+          "aux": float(aux_a), "aux_plain": float(aux_b), "tol": 1e-4})
+    del a, b, params32
+    torch.cuda.empty_cache()
+    if not err32 <= 1e-4:
+        raise AssertionError(f"f32 MoE forward disagrees with plain attention: {err32}")
+    return by_dtype
+
+
+def leaf_rel_l2(names, ga, gp) -> tuple[float, str]:
+    """The largest per-leaf relative L2 of ga against gp, and its leaf."""
+    worst, worst_leaf = 0.0, None
+    for name, a, b in zip(names, ga, gp):
+        den = float(b.float().norm())
+        rel = float((a.float() - b.float()).norm()) / den if den else float(a.float().norm())
+        if rel > worst:
+            worst, worst_leaf = rel, name
+    return worst, worst_leaf
+
+
+def phase_moe_train(card: str, kernels) -> tuple[dict, dict]:
+    """make_train_step on llama3_8b_switch8 cut to 8 layers. Returns the
+    launches of the timed steps and of one step."""
+    import statistics
+
+    import torch
+
+    from ray_tpu_torch.models.llama import AdamW, LlamaConfig, llama_init, make_train_step
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b_switch8(), n_layers=8)  # remat, bf16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    params = llama_init(g, cfg, "cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 2049), generator=g,
+                                     device="cuda")}
+    opt = AdamW(1e-4)
+    state = opt.init(params)
+
+    names = [n for n, _ in _named_leaves(params)]
+    with Routing() as routes:
+        loss_a, ga = grads(params, cfg, batch, "auto")
+    with Routing() as free_routes:
+        loss_free, gp = grads(params, cfg, batch, "plain")
+    free_worst, free_leaf = leaf_rel_l2(names, ga, gp)
+    # a second correct attention (SDPA), free-running and on its own routing replayed
+    with SdpaAsPlain(), Routing() as sdpa_routes:
+        _, gs = grads(params, cfg, batch, "plain")
+    sdpa_free_worst, sdpa_free_leaf = leaf_rel_l2(names, gs, gp)
+    del gp
+    with Routing(replay=sdpa_routes):
+        _, gp = grads(params, cfg, batch, "plain")
+    sdpa_worst, sdpa_leaf = leaf_rel_l2(names, gs, gp)
+    del gs, gp
+    with Routing(replay=routes):
+        loss_p, gp = grads(params, cfg, batch, "plain")
+    worst, worst_leaf = leaf_rel_l2(names, ga, gp)
+    del ga, gp
+    emit({"phase": "moe_train_grads", "layers": cfg.n_layers, "dtype": cfg.dtype,
+          "loss_auto": float(loss_a), "loss_plain_same_routing": float(loss_p),
+          "worst_leaf_rel_l2_vs_plain_same_routing": worst, "worst_leaf": worst_leaf,
+          "tol": 3e-2, "loss_plain_free": float(loss_free),
+          "worst_leaf_rel_l2_vs_plain_free": free_worst, "worst_leaf_free": free_leaf,
+          "routing_agreement_free_per_call": routes.agreement(free_routes),
+          "sdpa_worst_leaf_rel_l2_vs_plain_free": sdpa_free_worst,
+          "sdpa_worst_leaf_free": sdpa_free_leaf,
+          "sdpa_worst_leaf_rel_l2_vs_plain_same_routing": sdpa_worst,
+          "sdpa_worst_leaf": sdpa_leaf,
+          "sdpa_routing_agreement_free_per_call": sdpa_routes.agreement(free_routes)})
+    if not (abs(float(loss_a) - float(loss_p)) <= 3e-2 and worst <= 3e-2):
+        raise AssertionError(f"bf16 MoE gradients disagree with plain attention: "
+                             f"{worst} at {worst_leaf}")
+    del routes, free_routes, sdpa_routes  # the check's dispatch records, off the main path
+
+    step = make_train_step(cfg, opt, attn_impl="auto")
+    params, state, loss = step(params, state, batch)  # warm-up
+    losses, step_ms, per_step = [float(loss)], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.LAUNCHES.clear()  # the main path starts here
+    for _ in range(TRAIN_STEPS):
+        before = kernels.launches()
+        (params, state, loss), ms = timed(lambda: step(params, state, batch))
+        now = kernels.launches()
+        per_step.append({n: now[n] - before[n] for n in kernels.KERNELS})
+        losses.append(float(loss))
+        step_ms.append(ms)
+    now = kernels.launches()
+    launches = {n: now[n] for n in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: cfg.n_layers for n in kernels.KERNELS}
+    if any(c != want for c in per_step):
+        raise AssertionError(f"kernel launches per step {per_step}, want {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE training losses {losses}")
+    med = statistics.median(step_ms)
+    tokens = batch["tokens"][:, :-1].numel()
+    emit({"phase": "moe_train", "config": "llama3_8b_switch8", "layers": cfg.n_layers,
+          "dtype": cfg.dtype, "remat": cfg.remat, "tokens": list(batch["tokens"].shape),
+          "params": tree_numel(params), "losses": losses, "step_ms": step_ms,
+          "step_ms_median": med, "step_ms_spread": max(step_ms) - min(step_ms),
+          "tokens_per_s": tokens / med * 1e3, "max_memory_allocated": peak,
+          "launches_per_step": per_step[0], "card": card})
+    del params, state, opt, step, batch, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, per_step[0]
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def phase_parallel(card: str) -> None:
+    """The parallel layer on an NCCL group of world size 1, each entry point
+    against its local counterpart at float32."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.llama import (
+        LlamaConfig,
+        llama_init,
+        llama_loss,
+        llama_pp_loss,
+        stack_pp_params,
+    )
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.moe import moe_ffn
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply
+    from ray_tpu_torch.parallel.ring_attention import reference_attention, ring_attention
+    from ray_tpu_torch.parallel.ulysses import ulysses_attention
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    errs, t0 = {}, time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv", rank=0,
+                                world_size=1)
+        try:
+            mesh = MeshSpec().build()
+            backend = str(dist.get_backend())
+            with torch.no_grad():
+                q, k, v = (randn(2, 2048, 8, 128) for _ in range(3))
+                ref = reference_attention(q, k, v)
+                errs["ring_attention"] = float((ring_attention(q, k, v, mesh) - ref).abs().max())
+                errs["ulysses_attention"] = float(
+                    (ulysses_attention(q, k, v, mesh) - ref).abs().max())
+                stacked = {"w": randn(1, 512, 512, scale=0.05), "b": randn(1, 512, scale=0.1)}
+                x = randn(64, 512)
+
+                def stage_fn(p, h):
+                    return torch.tanh(h @ p["w"] + p["b"])
+
+                want = stage_fn({"w": stacked["w"][0], "b": stacked["b"][0]}, x)
+                got = pipeline_apply(stage_fn, stacked, x, mesh, n_microbatches=4)
+                errs["pipeline_apply"] = float((got - want).abs().max())
+                margs = (randn(2, 256, 1024), randn(1024, 8, scale=0.05),
+                         randn(8, 1024, 2048, scale=0.02), randn(8, 2048, 1024, scale=0.02))
+                (o1, a1), (o2, a2) = moe_ffn(*margs, mesh=mesh), moe_ffn(*margs)
+                errs["moe_ffn"] = max(float((o1 - o2).abs().max()), abs(float(a1 - a2)))
+                cfg = LlamaConfig(vocab_size=1024, d_model=256, n_layers=2, n_heads=4,
+                                  n_kv_heads=4, d_ff=512, max_seq_len=512, dtype="float32",
+                                  remat=False)
+                params = llama_init(g, cfg, "cuda")
+                batch = {"tokens": torch.randint(0, 1024, (4, 257), generator=g,
+                                                 device="cuda")}
+                pp = llama_pp_loss(stack_pp_params(params, cfg, 1), batch, cfg, mesh,
+                                   n_microbatches=2)
+                errs["llama_pp_loss"] = abs(float(pp) - float(
+                    llama_loss(params, batch, cfg, attn_impl="plain")))
+        finally:
+            dist.destroy_process_group()
+    emit({"phase": "parallel", "world_size": 1, "backend": backend,
+          "mesh_shape": list(mesh.shape), "max_abs_err": errs, "tol": 2e-5,
+          "seconds": time.perf_counter() - t0, "card": card})
+    bad = {n: e for n, e in errs.items() if not e <= 2e-5}
+    if bad:
+        raise AssertionError(f"parallel entry points differ from their local versions: {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -1504,6 +1903,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = phase_train(card, kernels, k)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_fwd_launches = phase_moe_forward(card, kernels)
+    moe_train_launches, moe_step_launches = phase_moe_train(card, kernels)
+    phase_parallel(card)
 
     replaces = {"flash_attention_fwd": "ray_tpu/ops/flash_attention.py:49",
                 "flash_attention_bwd_dq": "ray_tpu/ops/flash_attention.py:144",
@@ -1517,7 +1921,14 @@ def main() -> int:
                "train_launches": train_launches[name],
                "serving_launches": serve_launches.get(name, 0),
                "serving_layer_launches": layer_launches.get(name, 0)
-               + disagg_launches.get(name, 0), **k[name]}
+               + disagg_launches.get(name, 0),
+               "moe_forward_launches": sum(c for key, c in moe_fwd_launches.items()
+                                           if key.startswith(name + ":")),
+               "moe_forward_launches_by_dtype": {
+                   key.split(":")[1]: c for key, c in moe_fwd_launches.items()
+                   if key.startswith(name + ":")},
+               "moe_train_launches": moe_train_launches[name],
+               "moe_train_launches_per_step": moe_step_launches[name], **k[name]}
         if name != "flash_attention_fwd":
             row["plain_and_library_cover"] = "dq+dkv"
         rows.append(row)

@@ -10,9 +10,10 @@ minutes. ``-Xptxas -v`` makes the compiler report each kernel
 instantiation's registers, spills and static shared memory; the report is
 kept beside the library (``<library>.log``) and read by ``build_report``.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made on a CUDA
-tensor; a run that resets it before the main path and reads it after can
-show that the path went through the kernel.
+``LAUNCHES`` counts, per kernel and inputs' dtype, the launches its wrapper
+made on a CUDA tensor; a run that resets it before the main path and reads
+it after (``launches()`` sums the dtypes) can show that the path went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -33,7 +34,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
-LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES: collections.Counter = collections.Counter()  # (kernel, dtype) -> launches
+
+
+def count_launch(name: str, dtype) -> None:
+    """Count one launch of kernel ``name`` on inputs of ``dtype``."""
+    LAUNCHES[name, str(dtype).removeprefix("torch.")] += 1
+
+
+def launches() -> collections.Counter:
+    """``LAUNCHES`` per kernel, summed over the dtypes."""
+    out: collections.Counter = collections.Counter()
+    for (name, _), n in LAUNCHES.items():
+        out[name] += n
+    return out
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

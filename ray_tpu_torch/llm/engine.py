@@ -529,6 +529,10 @@ class ContinuousBatchingEngine:
                  block_buckets: tuple[int, ...] = (4, 8, 16, 32, 64),
                  kv_dtype: str | None = None, spec_enable: bool = False,
                  spec_k: int = 4, spec_ngram: int = 2, spec_drafter=None):
+        if cfg.n_experts:
+            # the JAX engine's decode body reads dense w_gate/w_up/w_down
+            raise NotImplementedError("the engine serves dense Llama layers only "
+                                      f"(cfg has n_experts={cfg.n_experts})")
         self.params = params
         self.cfg = cfg
         self.device = params["tok"]["embedding"].device

@@ -192,7 +192,7 @@ def _launch_fwd(q, k, v, causal, sm_scale):
                   lse.data_ptr(), B, H, T, Tk, D, _DTYPES[q.dtype],
                   *_strides(q, k, v), float(sm_scale), int(bool(causal)), stream)
     kernels.check(lib, KERNEL, code)
-    kernels.LAUNCHES[KERNEL] += 1
+    kernels.count_launch(KERNEL, q.dtype)
     return out, lse
 
 
@@ -224,7 +224,7 @@ def launch_bwd_dq(q, k, v, dout, lse, delta, *, causal, sm_scale):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(*ins, dq.data_ptr(), *common, stream)
     kernels.check(lib, KERNEL_DQ, code)
-    kernels.LAUNCHES[KERNEL_DQ] += 1
+    kernels.count_launch(KERNEL_DQ, q.dtype)
     return dq
 
 
@@ -239,7 +239,7 @@ def launch_bwd_dkv(q, k, v, dout, lse, delta, *, causal, sm_scale):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(*ins, dk.data_ptr(), dv.data_ptr(), *common, stream)
     kernels.check(lib, KERNEL_DKV, code)
-    kernels.LAUNCHES[KERNEL_DKV] += 1
+    kernels.count_launch(KERNEL_DKV, q.dtype)
     return dk, dv
 
 

@@ -80,9 +80,9 @@ def test_slim_lse_matches_kernel_lse_column(causal):
 
 
 def test_cpu_runs_plain_and_counts_no_launch():
-    before = kernels.LAUNCHES[KERNEL]
+    before = kernels.launches()[KERNEL]
     flash_attention(*map(torch.tensor, _qkv(4, T=32)))
-    assert kernels.LAUNCHES[KERNEL] == before
+    assert kernels.launches()[KERNEL] == before
 
 
 def test_requires_grad_gets_finite_grads_and_counts_no_launch():

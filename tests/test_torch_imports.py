@@ -12,8 +12,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
                "ray_tpu_torch.llm", "ray_tpu_torch.llm.disagg",
                "ray_tpu_torch.serve", "ray_tpu_torch.data",
-               "ray_tpu_torch.parallel", "ray_tpu_torch.utils",
-               "ray_tpu_torch.entry", "ray_tpu_torch.kernels"]
+               "ray_tpu_torch.parallel", "ray_tpu_torch.parallel.comm",
+               "ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
+               "ray_tpu_torch.parallel.ring_attention", "ray_tpu_torch.parallel.ulysses",
+               "ray_tpu_torch.parallel.pipeline", "ray_tpu_torch.parallel.moe",
+               "ray_tpu_torch.utils", "ray_tpu_torch.entry", "ray_tpu_torch.kernels"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():

@@ -89,14 +89,38 @@ def test_init_scales_and_layout():
 
 
 def test_moe_and_mesh_raise():
+    """MoE layers now port: the init draws JAX's layout and the forward
+    follows JAX's. What still raises: a mesh asking for whole-step dp, fsdp
+    or tp sharding (ROADMAP Queue 1 item 5), and the engine given MoE
+    params (its decode body, like JAX's, reads dense FFN weights)."""
+    import types
+
+    from ray_tpu_torch.llm.engine import ContinuousBatchingEngine
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+
+    jcfg = jllama.LlamaConfig.tiny(n_experts=2)
+    jparams = jllama.llama_init(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree.map(np.asarray, jparams)
     cfg = tllama.LlamaConfig.tiny(n_experts=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tllama.llama_init(torch.Generator(), cfg, "cpu")
-    dense = tllama.LlamaConfig.tiny()
-    params = tllama.llama_init(torch.Generator(), dense, "cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tllama.llama_forward(params, torch.zeros(1, 4, dtype=torch.long), dense,
-                             mesh=object())
+    drawn = tllama.llama_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    for path, arr in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        node = drawn
+        for p in path:
+            node = node[p.key]
+        assert tuple(node.shape) == arr.shape, jax.tree_util.keystr(path)
+    params = tllama.params_from_numpy(tree, cfg, device="cpu")
+    toks = _tokens(4, T=32)
+    want, jaux = _jforward(jparams, jax.numpy.asarray(toks), cfg=jcfg, attn_impl="plain")
+    got, aux = tllama.llama_forward(params, torch.tensor(toks), cfg, attn_impl="plain")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(float(aux), float(jaux), atol=1e-6, rtol=0)
+    for ax in ("dp", "fsdp", "tp"):
+        mesh = types.SimpleNamespace(mesh_dim_names=AXIS_ORDER,
+                                     shape=tuple(2 if a == ax else 1 for a in AXIS_ORDER))
+        with pytest.raises(NotImplementedError, match="item 5"):
+            tllama.llama_forward(params, torch.tensor(toks), cfg, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="dense"):
+        ContinuousBatchingEngine(params, cfg)
 
 
 def test_entry_runs_on_cpu():

@@ -96,6 +96,15 @@ def test_auto_dispatch_gate():
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
 def test_sequence_parallel_impls_raise(impl):
+    """ring and ulysses are ported now: with no mesh they run as a world of
+    one rank and give JAX's exact attention (GQA heads repeated first); the
+    multi-rank parity is tests/test_torch_parallel.py. An unknown impl
+    still raises."""
+    rng = np.random.default_rng(9)
+    q, k, v = _rand(rng, 2, 16, 4, 8), _rand(rng, 2, 16, 2, 8), _rand(rng, 2, 16, 2, 8)
+    want = jreference(jnp.asarray(q), jnp.repeat(jnp.asarray(k), 2, axis=2),
+                      jnp.repeat(jnp.asarray(v), 2, axis=2), causal=True)
+    _close(tattention(torch.tensor(q), torch.tensor(k), torch.tensor(v), impl=impl), want)
     x = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattention(x, x, x, impl=impl)
+    with pytest.raises(ValueError, match="unknown"):
+        tattention(x, x, x, impl=impl + "_typo")

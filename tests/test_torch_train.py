@@ -146,8 +146,31 @@ def test_make_train_step_follows_jax(jparams):
 
 
 def test_make_train_step_mesh_and_moe_raise():
-    cfg = tllama.LlamaConfig.tiny()
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tllama.make_train_step(cfg, tllama.AdamW(1e-3), mesh=object())
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tllama.make_train_step(dataclasses.replace(cfg, n_experts=2), tllama.AdamW(1e-3))
+    """make_train_step now takes MoE configs: three steps follow JAX's (the
+    aux loss and the float32 promotion included). A mesh asking for
+    whole-step dp/fsdp/tp sharding still raises (ROADMAP Queue 1 item 5)."""
+    import types
+
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+
+    jcfg = jllama.LlamaConfig.tiny(n_experts=4)
+    tcfg = tllama.LlamaConfig.tiny(n_experts=4)
+    jparams = jllama.llama_init(jax.random.PRNGKey(1), jcfg)
+    batch = _tokens(5)
+    jopt = optax.adamw(**HYPER)
+    jstep = jllama.make_train_step(jcfg, jopt, donate=False)
+    jp, jstate = jparams, jopt.init(jparams)
+    topt = tllama.AdamW(**HYPER)
+    tp = tllama.params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    tstate = topt.init(tp)
+    tstep = tllama.make_train_step(tcfg, topt)
+    for _ in range(3):
+        jp, jstate, jloss = jstep(jp, jstate, {"tokens": jnp.asarray(batch)})
+        tp, tstate, tloss = tstep(tp, tstate, {"tokens": torch.tensor(batch)})
+        np.testing.assert_allclose(float(tloss), float(jloss), atol=1e-5, rtol=0)
+    for path, w in jax.tree_util.tree_flatten_with_path(jp)[0]:
+        np.testing.assert_allclose(_leaf(tp, path).detach().numpy(), np.asarray(w),
+                                   atol=1e-4, rtol=0, err_msg=jax.tree_util.keystr(path))
+    mesh = types.SimpleNamespace(mesh_dim_names=AXIS_ORDER, shape=(2, 1, 1, 1, 1, 1))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tllama.make_train_step(tcfg, tllama.AdamW(1e-3), mesh=mesh)
