@@ -95,6 +95,26 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               ulysses_attention, pipeline_apply, moe_ffn (ep=1) and
               llama_pp_loss (pp=1) each equal their local counterpart on the
               card within 2e-5 at float32; the group is destroyed.
+9. trainer  — TorchTrainer(num_workers=1), NCCL at world size 1: the train
+              phase's step (8 layers, B=2, T=2048, bf16, remat, AdamW 1e-4)
+              in a worker process, params placed by shard_pytree on the
+              one-rank mesh; 3 warm-up and TRAIN_STEPS (20) timed steps,
+              8/8/8 launches each read in the worker, the step-1 loss within
+              3e-2 of the train phase's, the loss finite and falling; the
+              seconds from fit() to the first report.
+10. trainer_checkpoint — 2 layers at full width: fit 1 runs 4 steps and
+              saves params and AdamW state at step 2 (Checkpoint.
+              from_state_dict), fit 2 resumes from it and runs steps 3-4,
+              whose losses must equal fit 1's within 1e-6 relative (printed:
+              whether exactly); the bytes and the save and load GB/s.
+11. trainer_dp2 — two workers sharing the card (GPU 0.5 each, gloo) take one
+              float32 step at MeshSpec(dp=2) (d_model 1024, 2 layers, B=4,
+              T=2048, so the float32 kernels run in both); loss within 1e-5
+              (relative) and every updated leaf within 1e-4 of the one-
+              process step on the whole batch, and a collective.allreduce of
+              numpy giving the sum on both ranks.
+12. dryrun  — ray_tpu_torch.entry.dryrun_multichip(1): NCCL at world size 1,
+              then the trainer arm's two workers.
 
 Then the {"kernels": [...]} line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -1379,9 +1399,10 @@ def grads(params, cfg, batch, attn_impl):
     return loss.detach(), torch.autograd.grad(loss, ts)
 
 
-def phase_train(card: str, kernels, k: dict) -> dict:
+def phase_train(card: str, kernels, k: dict) -> tuple[dict, list]:
     """make_train_step at Llama-3-8B width cut to 8 layers. Returns the
-    kernel launches of the timed steps."""
+    kernel launches of the timed steps and every step's loss (the warm-up
+    and the timed steps)."""
     import statistics
 
     import torch
@@ -1482,7 +1503,7 @@ def phase_train(card: str, kernels, k: dict) -> dict:
           "tol": 1e-3})
     if not worst <= 1e-3:
         raise AssertionError(f"f32 gradients disagree with plain attention: {worst}")
-    return launches
+    return launches, losses
 
 
 class Routing:
@@ -1855,6 +1876,342 @@ def phase_parallel(card: str) -> None:
         raise AssertionError(f"parallel entry points differ from their local versions: {bad}")
 
 
+# ------------------------------------------------------------ the trainer
+# The loops below run inside TorchTrainer's worker processes, which import
+# this script as a module by name (a loop must be importable).
+TRAINER_WARMUP = 3
+ATTRIBUTION_STEPS = 20  # trainer: mesh and no-mesh steps, alternating
+HYPER = dict(learning_rate=1e-2, b1=0.9, b2=0.99, eps=1e-6, weight_decay=1e-2)
+DP2_CFG = dict(vocab_size=32000, d_model=1024, n_layers=2, n_heads=8, n_kv_heads=8, d_ff=2816,
+               max_seq_len=2048, dtype="float32")
+
+
+def _no_tf32():
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def trainer_loop(config):
+    """The train phase's step in a worker: Llama-3-8B width cut to
+    ``layers``, bf16, remat, AdamW lr 1e-4, params placed by
+    shard_pytree on the (one-rank) mesh; warm-up and timed steps, the flash
+    launches of each step read here, in the worker."""
+    import torch
+
+    from ray_tpu_torch import kernels, train
+    from ray_tpu_torch.models.llama import AdamW, LlamaConfig, llama_init, make_train_step
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.sharding import PartitionRules, shard_pytree
+
+    _no_tf32()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=config["layers"])
+    g = torch.Generator(device="cuda").manual_seed(config["seed"])
+    params = llama_init(g, cfg, "cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 2049), generator=g,
+                                     device="cuda")}
+    mesh = MeshSpec().build()
+    params = shard_pytree(params, PartitionRules.llama(), mesh)
+    opt = AdamW(1e-4)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, mesh=mesh)
+    losses, step_ms, per_step = [], [], []
+    for i in range(TRAINER_WARMUP + config["steps"]):
+        if i == TRAINER_WARMUP:  # the timed steps start here
+            torch.cuda.reset_peak_memory_stats()
+            kernels.LAUNCHES.clear()
+        before = kernels.launches()
+        (params, state, loss), ms = timed(lambda: step(params, state, batch))
+        now = kernels.launches()
+        losses.append(float(loss))
+        if i >= TRAINER_WARMUP:
+            step_ms.append(ms)
+            per_step.append({n: now[n] - before[n] for n in kernels.KERNELS})
+        if i == 0:
+            train.report({"step": 1, "loss": losses[0], "t": time.time()})
+    launches = dict(kernels.launches())
+    peak = torch.cuda.max_memory_allocated()
+    # attribution: the same step on the same local tensors without the
+    # mesh, alternating with the mesh step, in one process: each step's
+    # host time until it returns (its enqueue) and its wall time
+    from ray_tpu_torch.models.llama import _map_tree, _shard_leaf
+
+    local = _map_tree(_shard_leaf, params)
+    plain = make_train_step(cfg, opt)
+    arms = {"mesh": [], "no_mesh": []}
+    enqueue = {"mesh": [], "no_mesh": []}
+    for _ in range(ATTRIBUTION_STEPS):
+        for arm, fn, p in (("mesh", step, params), ("no_mesh", plain, local)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(p, state, batch)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            enqueue[arm].append((t1 - t0) * 1e3)
+            arms[arm].append((time.perf_counter() - t0) * 1e3)
+    # the collective API on the worker's NCCL group (world size 1): numpy
+    # goes through the card and comes back numpy, tensors stay on the card
+    import numpy as np
+
+    from ray_tpu_torch import collective
+
+    group = train.get_context().collective_group
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    cx = torch.from_numpy(x).cuda()
+    checks = {
+        "allreduce": np.array_equal(collective.allreduce(x, group), x),
+        "allgather": torch.equal(collective.allgather(cx, group), cx[None]),
+        "reducescatter": np.array_equal(collective.reducescatter(x, group), x),
+        "broadcast": np.array_equal(collective.broadcast(x, 0, group), x),
+        "mean_is_float": collective.allreduce(np.arange(3), group,
+                                              collective.ReduceOp.MEAN).dtype.kind == "f",
+    }
+    train.report({"losses": losses, "step_ms": step_ms, "launches_per_step": per_step,
+                  "launches": launches, "max_memory_allocated": peak, "attribution_ms": arms,
+                  "attribution_enqueue_ms": enqueue,
+                  "collective_nccl": checks, "device": torch.cuda.get_device_name(0)})
+
+
+def _ckpt_batch(cfg, i):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 100 + i)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (2, 2049), generator=g, device="cuda")}
+
+
+def checkpoint_loop(config):
+    """Steps ``first``..``steps`` at Llama-3-8B width cut to 2 layers (whole
+    params), saving params and AdamW state at ``save_at``; from the
+    trainer's checkpoint when there is one. Each step's batch is drawn from
+    its own seed, so a resumed run sees the same data."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import AdamW, LlamaConfig, llama_init, make_train_step
+    from ray_tpu_torch.train import Checkpoint
+    from ray_tpu_torch.utils.serialization import from_host
+
+    _no_tf32()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
+    opt = AdamW(1e-4)
+    start, load = train.get_checkpoint(), {}
+    if start is None:
+        params = llama_init(torch.Generator(device="cuda").manual_seed(SEED + 5), cfg, "cuda")
+        state = opt.init(params)
+        first = 1
+    else:
+        t0 = time.perf_counter()
+        host = start.to_dict()
+        params = from_host(host["params"], "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = opt.init(params)
+        t2 = time.perf_counter()
+        state.load_state_dict(from_host(host["opt"], "cpu"))  # moved to the params' card
+        torch.cuda.synchronize()
+        load = {"load_s": t1 - t0 + time.perf_counter() - t2,
+                "bytes": os.path.getsize(os.path.join(start.path, "state.pkl"))}
+        first = host["step"] + 1
+    step = make_train_step(cfg, opt)
+    for i in range(first, config["steps"] + 1):
+        params, state, loss = step(params, state, _ckpt_batch(cfg, i))
+        metrics, ckpt = {"step": i, "loss": float(loss), **load}, None
+        load = {}
+        if i == config.get("save_at"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt = Checkpoint.from_state_dict({"params": params, "opt": state.state_dict(),
+                                               "step": i})
+            metrics["save_s"] = time.perf_counter() - t0
+            metrics["bytes"] = os.path.getsize(os.path.join(ckpt.path, "state.pkl"))
+        train.report(metrics, checkpoint=ckpt)
+
+
+def _dp2_inputs():
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+
+    cfg = LlamaConfig(**DP2_CFG)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    params = llama_init(g, cfg, "cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2049), generator=g, device="cuda")}
+    return cfg, params, batch
+
+
+def dp2_loop(config):
+    """One AdamW step of the float32 model over MeshSpec(dp=2): two ranks
+    on one card, gloo; rank 0 checkpoints the updated params. And a
+    collective.allreduce of a numpy array."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import collective, kernels, train
+    from ray_tpu_torch.models.llama import AdamW, make_train_step
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train import Checkpoint
+
+    _no_tf32()
+    ctx = train.get_context()
+    cfg, params, batch = _dp2_inputs()
+    mesh = MeshSpec(dp=2).build()
+    opt = AdamW(**HYPER)
+    kernels.LAUNCHES.clear()
+    params, _, loss = make_train_step(cfg, opt, mesh=mesh)(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    total = collective.allreduce(np.array([ctx.get_world_rank() + 1.0]),
+                                 group_name=ctx.collective_group)
+    metrics = {"loss": float(loss), "allreduce": total.tolist(),
+               "launches": dict(kernels.launches())}
+    ckpt = Checkpoint.from_dict({"params": params}) if ctx.get_world_rank() == 0 else None
+    train.report(metrics, checkpoint=ckpt)
+
+
+def _fit(loop, config, storage, resume=None, **scaling):
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    t0 = time.time()
+    result = TorchTrainer(loop, train_loop_config=config,
+                          scaling_config=ScalingConfig(use_gpu=True, **scaling),
+                          run_config=RunConfig(storage_path=storage),
+                          resume_from_checkpoint=resume).fit()
+    if result.error is not None:
+        raise result.error
+    return result, t0
+
+
+def phase_trainer(card: str, train_losses: list) -> dict:
+    """TorchTrainer(num_workers=1), NCCL at world size 1, running the train
+    phase's step in its worker on shard_pytree's DTensors. Its losses must
+    follow the train phase's step by step (same seed, batch and lr):
+    exactly, or within 1e-6 relative; printed which. Returns the worker's
+    kernel launches over the timed steps."""
+    import statistics
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        result, t0 = _fit(trainer_loop, {"layers": 8, "seed": SEED + 2, "steps": TRAIN_STEPS},
+                          tmp, num_workers=1)
+    first, final = result.metrics_history[0], result.metrics_history[-1]
+    losses, step_ms = final["losses"], final["step_ms"]
+    med = statistics.median(step_ms)
+    want = {n: 8 for n in final["launches"]}
+    pairs = list(zip(losses, train_losses))
+    traj_rel = max(abs(a - b) / abs(b) for a, b in pairs)
+    arms = {arm: statistics.median(ms) for arm, ms in final["attribution_ms"].items()}
+    enqueue = {arm: statistics.median(ms)
+               for arm, ms in final["attribution_enqueue_ms"].items()}
+    emit({"phase": "trainer", "workers": 1, "backend": "nccl", "layers": 8,
+          "params": "shard_pytree (DTensor)", "tokens": [2, 2049], "losses": losses,
+          "step_ms": step_ms, "step_ms_median": med,
+          "step_ms_spread": max(step_ms) - min(step_ms), "tokens_per_s": 2 * 2048 / med * 1e3,
+          "max_memory_allocated": final["max_memory_allocated"],
+          "launches_per_step": final["launches_per_step"][0],
+          "seconds_fit_to_first_report": first["t"] - t0,
+          "step1_loss": first["loss"], "train_phase_step1_loss": train_losses[0],
+          "train_phase_losses": train_losses, "steps_compared": len(pairs),
+          "trajectory_exact": traj_rel == 0.0, "trajectory_max_rel_diff": traj_rel,
+          "trajectory_tol": 1e-6, "attribution_ms_median": arms,
+          "attribution_enqueue_ms_median": enqueue, "attribution_ms": final["attribution_ms"],
+          "attribution_enqueue_ms": final["attribution_enqueue_ms"],
+          "collective_nccl": final["collective_nccl"], "worker_device": final["device"],
+          "card": card})
+    if not all(final["collective_nccl"].values()):
+        raise AssertionError(f"collective ops on NCCL: {final['collective_nccl']}")
+    if any(c != want for c in final["launches_per_step"]) or len(want) != 3:
+        raise AssertionError(f"trainer kernel launches {final['launches_per_step']}")
+    if len(pairs) != len(train_losses) or not traj_rel <= 1e-6:
+        raise AssertionError(f"trainer losses {losses} do not follow the train phase's "
+                             f"{train_losses}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"trainer losses {losses}")
+    return final["launches"]
+
+
+def phase_trainer_checkpoint(card: str) -> None:
+    """Fit 1: 4 steps, params and AdamW state saved at step 2; fit 2 resumes
+    from that checkpoint and runs steps 3-4, whose losses must equal fit
+    1's (exactly, or within 1e-6 relative; printed which)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        one, _ = _fit(checkpoint_loop, {"steps": 4, "save_at": 2}, os.path.join(tmp, "a"),
+                      num_workers=1)
+        saved = [m for m in one.metrics_history if "save_s" in m][0]
+        two, _ = _fit(checkpoint_loop, {"steps": 4}, os.path.join(tmp, "b"),
+                      resume=one.checkpoint, num_workers=1)
+    a = {m["step"]: m["loss"] for m in one.metrics_history}
+    b = {m["step"]: m["loss"] for m in two.metrics_history}
+    loaded = [m for m in two.metrics_history if "load_s" in m]
+    rel = max(abs(b[i] - a[i]) / abs(a[i]) for i in (3, 4)) if set(b) == {3, 4} else None
+    emit({"phase": "trainer_checkpoint", "layers": 2, "fit1_losses": a, "fit2_losses": b,
+          "exact": rel == 0.0, "max_rel_diff": rel, "tol": 1e-6, "bytes": saved["bytes"],
+          "save_s": saved["save_s"], "save_gb_per_s": saved["bytes"] / saved["save_s"] / 1e9,
+          "load_s": loaded[0]["load_s"] if loaded else None,
+          "load_gb_per_s": loaded[0]["bytes"] / loaded[0]["load_s"] / 1e9 if loaded else None,
+          "card": card})
+    if rel is None or not loaded or not rel <= 1e-6:
+        raise AssertionError(f"resumed losses {b} differ from {a}")
+
+
+def phase_trainer_dp2(card: str) -> None:
+    """TorchTrainer(num_workers=2, GPU 0.5 each, gloo): one step at
+    MeshSpec(dp=2) against the world-size-1 step on the whole batch here,
+    loss within 1e-5 (relative) and every updated leaf within 1e-4; and a
+    collective.allreduce of numpy on both ranks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models.llama import AdamW, make_train_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        result, t0 = _fit(dp2_loop, {}, tmp, num_workers=2,
+                          resources_per_worker={"GPU": 0.5}, collective_backend="gloo")
+        seconds = time.time() - t0
+        got = result.checkpoint.to_dict()["params"]
+    ranks = sorted(result.metrics_history, key=lambda m: m["world_rank"])
+    cfg, params, batch = _dp2_inputs()
+    opt = AdamW(**HYPER)
+    params, _, loss = make_train_step(cfg, opt)(params, opt.init(params), batch)
+    want, worst, worst_leaf = float(loss), 0.0, None
+    for name, leaf in _named_leaves(params):
+        node = got
+        for part in name.split("/"):
+            node = node[part]
+        err = float(np.abs(node - leaf.detach().cpu().numpy()).max())
+        if err >= worst:
+            worst, worst_leaf = err, name
+    loss_rel = max(abs(m["loss"] - want) / abs(want) for m in ranks)
+    emit({"phase": "trainer_dp2", "workers": 2, "backend": "gloo", "gpu_per_worker": 0.5,
+          "config": DP2_CFG, "tokens": [4, 2049], "loss_ranks": [m["loss"] for m in ranks],
+          "loss_world1": want, "loss_rel_diff": loss_rel, "loss_tol": 1e-5,
+          "worst_leaf_abs_diff": worst, "worst_leaf": worst_leaf, "leaf_tol": 1e-4,
+          "allreduce": [m["allreduce"] for m in ranks],
+          "launches_ranks": [m["launches"] for m in ranks], "seconds": seconds, "card": card})
+    del params
+    torch.cuda.empty_cache()
+    if not (loss_rel <= 1e-5 and worst <= 1e-4):
+        raise AssertionError(f"dp=2 step differs from world size 1: {loss_rel}, {worst}")
+    if any(m["allreduce"] != [3.0] for m in ranks):
+        raise AssertionError(f"allreduce gave {[m['allreduce'] for m in ranks]}")
+    if any(set(m["launches"].values()) != {cfg.n_layers} for m in ranks):
+        raise AssertionError(f"flash launches in the workers {[m['launches'] for m in ranks]}")
+
+
+def phase_dryrun(card: str) -> None:
+    """entry.dryrun_multichip(1) on the card: NCCL at world size 1 for
+    configuration A, then the trainer arm's two workers sharing it."""
+    from ray_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dryrun_multichip(1)
+    emit({"phase": "dryrun", "n_devices": 1, "seconds": time.perf_counter() - t0,
+          "card": card})
+
+
 def main() -> int:
     import torch
 
@@ -1902,12 +2259,19 @@ def main() -> int:
     # sit in reference cycles that hold the weights until a collection
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = phase_train(card, kernels, k)
+    train_launches, train_losses = phase_train(card, kernels, k)
     gc.collect()
     torch.cuda.empty_cache()
     moe_fwd_launches = phase_moe_forward(card, kernels)
     moe_train_launches, moe_step_launches = phase_moe_train(card, kernels)
     phase_parallel(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the trainer's worker processes take the card from here
+    trainer_launches = phase_trainer(card, train_losses)
+    phase_trainer_checkpoint(card)
+    phase_trainer_dp2(card)
+    phase_dryrun(card)
 
     replaces = {"flash_attention_fwd": "ray_tpu/ops/flash_attention.py:49",
                 "flash_attention_bwd_dq": "ray_tpu/ops/flash_attention.py:144",
@@ -1919,6 +2283,7 @@ def main() -> int:
                # the forward's main path is the forward phase; the backward's, training
                "launches": launches if name == "flash_attention_fwd" else train_launches[name],
                "train_launches": train_launches[name],
+               "trainer_launches": trainer_launches[name],
                "serving_launches": serve_launches.get(name, 0),
                "serving_layer_launches": layer_launches.get(name, 0)
                + disagg_launches.get(name, 0),

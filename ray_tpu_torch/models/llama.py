@@ -12,17 +12,25 @@ promotes the residual stream to float32 from the first MoE layer on, so
 every product goes through ``ops.basic.matmul``.
 
 With a mesh, the forward, loss and train step run in PyTorch's local view
-(one process per mesh position): the sequence is split over ``sp`` (ring
-attention, rope at global positions) and the batch rows and the experts
-over ``ep``. The pipelined and tensor-parallel variant is ``llama_pp_loss``.
+(one process per mesh position) and make the partitioning that JAX's jit
+shardings make: batch rows over dp, fsdp and ep (``batch_spec``), the
+sequence over ``sp`` (ring attention, rope at global positions), the
+experts over ``ep``, and Megatron tensor parallelism over ``tp`` in every
+block (each rank's heads through ``attention``, so the flash kernels run
+on the local heads). A pp axis there is replicated compute; the pipeline
+is ``llama_pp_loss``. Params may be whole tensors or ``shard_pytree``'s
+``DTensor`` tree (``PartitionRules.llama()``): each rank then keeps its
+shards, gathers an fsdp-sharded weight just before its layer (again in the
+remat recompute) and gets its gradient shards back by reduce-scatter.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import attention, sequence_attention
@@ -32,12 +40,15 @@ from ray_tpu_torch.parallel.comm import (
     axis_index,
     axis_size,
     gather,
+    gather_sum,
     psum,
     replicate,
     shard,
 )
+from ray_tpu_torch.parallel.mesh import AXIS_ORDER
 from ray_tpu_torch.parallel.moe import moe_ffn_local
 from ray_tpu_torch.parallel.pipeline import pipeline_apply, stack_stage_params
+from ray_tpu_torch.parallel.sharding import PartitionRules
 from ray_tpu_torch.utils.device import resolve_device
 
 
@@ -168,67 +179,161 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig, *, device=None,
 
 @dataclasses.dataclass(frozen=True)
 class _Split:
-    """How a sharded forward splits the tokens: batch rows (and experts)
-    over ``ep``, the sequence over ``seq``; ``None`` for an axis of size 1."""
+    """How a sharded forward splits the work: batch rows over ``rows``
+    (dp, fsdp and ep, outermost first, as ``batch_spec`` and the experts'
+    exchange split them), the sequence over ``seq`` and the heads and the
+    FFN over ``tp`` (Megatron); axes of size 1 are left out."""
 
     mesh: object
-    ep: str | None
+    rows: tuple[str, ...]
     seq: str | None
+    tp: str | None
+
+    @property
+    def ep(self) -> str | None:
+        return "ep" if "ep" in self.rows else None
+
+    @property
+    def token_axes(self) -> tuple[str, ...]:
+        """The axes whose ranks hold different tokens."""
+        return self.rows + ((self.seq,) if self.seq else ())
 
     @property
     def n_tokens_shards(self) -> int:
-        return axis_size(self.mesh, self.ep) * axis_size(self.mesh, self.seq)
+        return math.prod(axis_size(self.mesh, ax) for ax in self.token_axes)
 
 
-_ITEM5 = ("waits for ROADMAP Queue 1 item 5 (whole-step dp/fsdp/tp sharding through "
-          "train/); a pipeline with tp inside its stages is llama_pp_loss")
-
-
-def _token_axes(mesh, seq_axis) -> _Split | None:
-    """The split a forward with ``mesh`` makes, or ``None`` for none."""
+def _split_for(mesh, seq_axis, cfg: LlamaConfig) -> _Split | None:
+    """The split a forward with ``mesh`` makes, or ``None`` when it splits
+    nothing (no mesh, or no axis it splits over is larger than 1): then the
+    step is the plain one. A pp axis means replicated compute, as under
+    JAX's jit (the pipeline is ``llama_pp_loss``)."""
     if mesh is None:
         return None
-    for ax in ("dp", "fsdp", "tp", "pp"):
-        if axis_size(mesh, ax) > 1:
-            raise NotImplementedError(f"a Llama forward sharded over {ax!r} {_ITEM5}")
-    ep = "ep" if axis_size(mesh, "ep") > 1 else None
-    seq = seq_axis if axis_size(mesh, seq_axis) > 1 else None
-    return _Split(mesh, ep, seq) if ep or seq else None
+    split = _Split(mesh, tuple(ax for ax in ("dp", "fsdp", "ep") if axis_size(mesh, ax) > 1),
+                   seq_axis if axis_size(mesh, seq_axis) > 1 else None,
+                   "tp" if axis_size(mesh, "tp") > 1 else None)
+    if not split.token_axes and split.tp is None:
+        return None
+    tp = axis_size(mesh, split.tp)
+    dense = cfg.n_layers > sum(_is_moe_layer(cfg, i) for i in range(cfg.n_layers))
+    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("d_ff", cfg.d_ff if dense else 0)):
+        if n % tp:
+            raise ValueError(f"tensor parallelism over {tp} ranks needs {what} % {tp} == 0; "
+                             f"the config has {what}={n} ({cfg})")
+    return split
 
 
-def _local_params(params, split: _Split):
-    """This rank's view of the global ``params``: experts sharded over ep,
-    everything else replicated over the token-splitting axes (so each
-    gradient is summed over the ranks whose tokens it saw)."""
+# Megatron's layout of the computation under tp: q/k/v and gate/up split by
+# columns, wo and w_down by rows; experts over ep. Everything else is
+# computed whole (the embedding, lm_head, norms and the router), and a
+# weight stored sharded otherwise is gathered before use.
+_COMPUTE = PartitionRules([
+    (r"moe/(w_up|w_down)/kernel$", ("ep",)),
+    (r"(wq|wk|wv|w_gate|w_up)/kernel$", (None, "tp")),
+    (r"(wo|w_down)/kernel$", ("tp", None)),
+])
+
+
+def _stored(t, mesh) -> tuple:
+    """How a param leaf is stored, as (axis, dim) pairs: () for a whole
+    tensor; a ``DTensor`` (from ``shard_pytree``) must sit on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return ()
+    if mesh is None:
+        raise ValueError("shard_pytree params need the mesh they were placed on (mesh=...)")
+    return _placement_dims(t.device_mesh, tuple(t.placements), t.shape, mesh)
+
+
+@functools.lru_cache(maxsize=4096)
+def _placement_dims(dmesh, placements: tuple, shape, mesh) -> tuple:
+    """(axis, dim) for each axis a ``DTensor`` on ``dmesh`` is sharded over
+    (worked out once per placement, shape and mesh: every step passes the
+    same ones)."""
+    if (dmesh.mesh_dim_names != mesh.mesh_dim_names
+            or tuple(dmesh.shape) != tuple(mesh.shape)):
+        raise ValueError("DTensor params must be placed on the step's mesh")
+    stored = []
+    for name, p in zip(mesh.mesh_dim_names, placements):
+        if p.is_shard():
+            if shape[p.dim] % axis_size(mesh, name):
+                raise ValueError(f"dim {p.dim} of a {tuple(shape)} weight does not split "
+                                 f"evenly over axis {name!r}")
+            stored.append((name, p.dim))
+        elif not p.is_replicate():
+            raise ValueError(f"unsupported placement {p}")
+    return tuple(stored)
+
+
+@functools.lru_cache(maxsize=4096)
+def _leaf_steps(path: str, ndim: int, stored: tuple, split: _Split) -> tuple:
+    """The collectives, in order, that turn this rank's stored piece of the
+    leaf at ``path`` (sharded as ``stored``, (axis, dim) pairs) into the
+    tensor it computes with (sharded as ``_COMPUTE`` says). Autograd
+    returns the gradient of the stored piece: summed over the token axes
+    the piece is replicated on, reduce-scattered over a token axis it was
+    gathered from (fsdp), chunked over another (tp) and gathered over an
+    axis it was sliced for. Worked out once per leaf and split."""
+    stored = dict(stored)
+    want = {ax: d for d, ax in enumerate(_COMPUTE.spec_for(path, ndim)) if ax}
     mesh = split.mesh
-
-    def rep(node):
-        if isinstance(node, dict):
-            return {k: rep(v) for k, v in node.items()}
-        return replicate(replicate(node, mesh, split.ep), mesh, split.seq)
-
-    def experts(node):  # [E, ...] -> this rank's [E/ep, ...]
-        return {"kernel": replicate(shard(node["kernel"], 0, mesh, split.ep), mesh, split.seq)}
-
-    out = {}
-    for name, node in params.items():
-        if name.startswith("layers_") and "moe" in node:
-            moe = node["moe"]
-            out[name] = {**rep({k: v for k, v in node.items() if k != "moe"}),
-                         "moe": {"gate": rep(moe["gate"]), "w_up": experts(moe["w_up"]),
-                                 "w_down": experts(moe["w_down"])}}
-        else:
-            out[name] = rep(node)
-    return out
+    steps = [functools.partial(replicate, mesh=mesh, name=ax) for ax in split.token_axes
+             if ax not in stored and ax not in want]
+    for ax in reversed(AXIS_ORDER):  # inner axes first, for two axes on one dim
+        if ax in stored and want.get(ax) != stored[ax]:
+            steps.append(functools.partial(gather_sum if ax in split.token_axes else gather,
+                                           dim=stored[ax], mesh=mesh, name=ax))
+    for ax in AXIS_ORDER:
+        if ax in want and stored.get(ax) != want[ax]:
+            steps.append(functools.partial(shard, dim=want[ax], mesh=mesh, name=ax))
+    return tuple(steps)
 
 
-def _block(layer, x, cos, sin, cfg: LlamaConfig, attn_impl, split: _Split | None = None):
+def _unwrap(params, mesh, split: _Split | None, prefix: str = ""):
+    """(this rank's tensors, per leaf the ``_leaf_steps`` that make the
+    tensor it computes with; ``None`` without ``split``) for ``params``:
+    whole tensors as they are, a ``DTensor`` as its local shard
+    (``_shard_leaf``), which gets the gradient."""
+    if isinstance(params, dict):
+        pairs = {k: _unwrap(v, mesh, split, f"{prefix}/{k}") for k, v in params.items()}
+        return ({k: v[0] for k, v in pairs.items()},
+                None if split is None else {k: v[1] for k, v in pairs.items()})
+    stored = _stored(params, mesh)
+    steps = None if split is None else _leaf_steps(prefix, params.ndim, stored, split)
+    return _shard_leaf(params), steps
+
+
+def _apply(tree, steps):
+    """``tree`` with each leaf passed through its ``steps``."""
+    if isinstance(tree, dict):
+        return {k: _apply(v, steps[k]) for k, v in tree.items()}
+    for step in steps:
+        tree = step(tree)
+    return tree
+
+
+def _block(layer, x, cos, sin, cfg: LlamaConfig, attn_impl, split: _Split | None = None,
+           steps=None):
+    """One decoder block on this rank's tokens. With ``steps``, ``layer``
+    holds the stored pieces, gathered or sliced here by their
+    ``_leaf_steps``, inside the remat region, so the recompute gathers
+    again; without, ``layer`` holds what this rank computes with (under tp,
+    its Megatron slices)."""
+    if steps is not None:
+        layer = _apply(layer, steps)
+    mesh, tp = (split.mesh, split.tp) if split is not None else (None, None)
+    n_tp = axis_size(mesh, tp)
     B, T, D = x.shape
     hd = cfg.head_dim
-    h = rms_norm(x, layer["attn_norm"]["scale"])
-    q = matmul(h, layer["wq"]["kernel"]).reshape(B, T, cfg.n_heads, hd)
-    k = matmul(h, layer["wk"]["kernel"]).reshape(B, T, cfg.n_kv_heads, hd)
-    v = matmul(h, layer["wv"]["kernel"]).reshape(B, T, cfg.n_kv_heads, hd)
+    # Megatron: the normed input is replicated over tp (its gradient summed)
+    # and each rank's heads and FFN columns give partial sums, psum'd back
+    h = replicate(rms_norm(x, layer["attn_norm"]["scale"]), mesh, tp)
+    q = matmul(h, layer["wq"]["kernel"]).reshape(B, T, cfg.n_heads // n_tp, hd)
+    k = matmul(h, layer["wk"]["kernel"]).reshape(B, T, cfg.n_kv_heads // n_tp, hd)
+    v = matmul(h, layer["wv"]["kernel"]).reshape(B, T, cfg.n_kv_heads // n_tp, hd)
     # named for the remat policy: the flash backward consumes q/k/v, and
     # the saved attention output spares the O(T^2) forward's recompute
     q = checkpoint_name(rope(q, cos, sin), "attn_qkv")
@@ -240,18 +345,21 @@ def _block(layer, x, cos, sin, cfg: LlamaConfig, attn_impl, split: _Split | None
     else:
         att = attention(q, k, v, causal=True, impl=attn_impl)
     att = checkpoint_name(att, "attn_out")
-    x = x + matmul(att.reshape(B, T, cfg.n_heads * hd), layer["wo"]["kernel"])
+    x = x + psum(matmul(att.reshape(B, T, -1), layer["wo"]["kernel"]), mesh, tp)
     h = rms_norm(x, layer["ffn_norm"]["scale"])
     if "moe" not in layer:
-        return x + swiglu(h, layer["w_gate"]["kernel"], layer["w_up"]["kernel"],
-                          layer["w_down"]["kernel"]), 0.0
+        return x + psum(swiglu(replicate(h, mesh, tp), layer["w_gate"]["kernel"],
+                               layer["w_up"]["kernel"], layer["w_down"]["kernel"]),
+                        mesh, tp), 0.0
+    # the experts run whole on every tp rank, on the same tokens
     moe = layer["moe"]
-    split = split or _Split(None, None, None)
+    split = split or _Split(None, (), None, None)
     n = B * T * split.n_tokens_shards  # the capacity of the whole batch
     out, aux = moe_ffn_local(h, moe["gate"]["kernel"], moe["w_up"]["kernel"],
                              moe["w_down"]["kernel"],
                              capacity=max(1, int(cfg.capacity_factor * n / cfg.n_experts)),
-                             mesh=split.mesh, ep_axis=split.ep, seq_axis=split.seq)
+                             mesh=split.mesh, ep_axis=split.ep, seq_axis=split.seq,
+                             row_axes=tuple(ax for ax in split.rows if ax != "ep"))
     return x + out, aux  # a float32 out promotes the residual stream, as in JAX
 
 
@@ -278,28 +386,35 @@ def _ce_loss(logits, targets):
 
 
 def _local_tokens(tokens, split: _Split):
-    return shard(shard(tokens, 0, split.mesh, split.ep), 1, split.mesh, split.seq)
+    for ax in split.rows:
+        tokens = shard(tokens, 0, split.mesh, ax)
+    return shard(tokens, 1, split.mesh, split.seq)
 
 
-def _forward(params, tokens, cfg: LlamaConfig, split: _Split | None, attn_impl):
+def _forward(params, tokens, cfg: LlamaConfig, mesh, split: _Split | None, attn_impl):
     """(logits of this rank's tokens, the aux loss summed over layers)."""
     emb = params["tok"]["embedding"]
     tokens = torch.as_tensor(tokens, device=emb.device).long()
     cos, sin = rope_freqs(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                           device=emb.device)
+    params, steps = _unwrap(params, mesh, split)
     if split is not None:
         tokens = _local_tokens(tokens, split)
-        params = _local_params(params, split)
         start = axis_index(split.mesh, split.seq) * tokens.shape[1]  # rope at global positions
         cos, sin = cos[start:], sin[start:]
-    x = params["tok"]["embedding"][tokens]
+        top = _apply({k: params[k] for k in ("tok", "norm", "lm_head")}, steps)
+    else:
+        top = params
+    x = top["tok"]["embedding"][tokens]
     aux_total = 0.0
     block = _maybe_remat_block(cfg)
     for i in range(cfg.n_layers):
-        x, aux = block(params[f"layers_{i}"], x, cos, sin, cfg, attn_impl, split)
+        name = f"layers_{i}"
+        x, aux = block(params[name], x, cos, sin, cfg, attn_impl, split,
+                       steps and steps[name])
         aux_total = aux_total + aux
-    x = rms_norm(x, params["norm"]["scale"])
-    return matmul(x, params["lm_head"]["kernel"]), aux_total
+    x = rms_norm(x, top["norm"]["scale"])
+    return matmul(x, top["lm_head"]["kernel"]), aux_total
 
 
 def llama_forward(params, tokens, cfg: LlamaConfig, *, mesh=None,
@@ -308,27 +423,35 @@ def llama_forward(params, tokens, cfg: LlamaConfig, *, mesh=None,
     MoE layer).
 
     Runs on the device of ``params``; ``tokens`` are moved there. With a
-    mesh, every rank passes the same params and tokens, works on its share
-    (the sequence split over ``seq_axis``, batch rows and experts over
-    ``ep``) and returns the whole logits."""
-    split = _token_axes(mesh, seq_axis)
-    logits, aux = _forward(params, tokens, cfg, split, attn_impl)
+    mesh, every rank passes the same tokens and gets the whole logits; it
+    works on its share: batch rows over dp, fsdp and ep (experts over ep),
+    the sequence over ``seq_axis``, heads and FFN columns over tp. The
+    params are whole tensors, the same on every rank, or the ``DTensor``
+    tree of ``shard_pytree(params, PartitionRules.llama(), mesh)``, whose
+    fsdp-sharded weights are gathered just before use."""
+    split = _split_for(mesh, seq_axis, cfg)
+    logits, aux = _forward(params, tokens, cfg, mesh, split, attn_impl)
     if split is not None:
-        logits = gather(gather(logits, 1, mesh, split.seq), 0, mesh, split.ep)
+        logits = gather(logits, 1, mesh, split.seq)
+        for ax in reversed(split.rows):
+            logits = gather(logits, 0, mesh, ax)
     return logits, aux
 
 
 def llama_loss(params, batch, cfg: LlamaConfig, *, mesh=None, attn_impl="auto"):
-    """Next-token cross entropy; batch: {"tokens": [B, T+1]}."""
+    """Next-token cross entropy; batch: {"tokens": [B, T+1]}. With a mesh,
+    the NLL is summed over every token-splitting axis and divided by the
+    global token count."""
     tokens = torch.as_tensor(batch["tokens"], device=params["tok"]["embedding"].device)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    split = _token_axes(mesh, "sp")
-    logits, aux = _forward(params, inputs, cfg, split, attn_impl)
+    split = _split_for(mesh, "sp", cfg)
+    logits, aux = _forward(params, inputs, cfg, mesh, split, attn_impl)
     if split is None:
         return _ce_loss(logits, targets) + 0.01 * aux
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, _local_tokens(targets, split)[..., None].long()).sum()
-    nll = psum(psum(nll, mesh, split.ep), mesh, split.seq)
+    for ax in split.token_axes:
+        nll = psum(nll, mesh, ax)
     return nll / targets.numel() + 0.01 * aux
 
 
@@ -358,28 +481,6 @@ def llama_pp_init(generator: torch.Generator, cfg: LlamaConfig, n_stages: int,
     ``stack_pp_params``). Dense layers only."""
     _check_pp(cfg, n_stages)
     return stack_pp_params(llama_init(generator, cfg, device), cfg, n_stages)
-
-
-def _block_tp(layer, x, cos, sin, cfg: LlamaConfig, mesh, tp_axis: str):
-    """Megatron-style tensor-parallel block on one rank of ``tp_axis``, which
-    holds a weight slice: q/k/v and gate/up column-parallel (heads / ff
-    split over ranks), wo and w_down row-parallel with a sum to rejoin the
-    residual stream."""
-    B, T, D = x.shape
-    hd = cfg.head_dim
-    tp = axis_size(mesh, tp_axis)
-    h = replicate(rms_norm(x, layer["attn_norm"]["scale"]), mesh, tp_axis)
-    q = matmul(h, layer["wq"]["kernel"]).reshape(B, T, cfg.n_heads // tp, hd)
-    k = matmul(h, layer["wk"]["kernel"]).reshape(B, T, cfg.n_kv_heads // tp, hd)
-    v = matmul(h, layer["wv"]["kernel"]).reshape(B, T, cfg.n_kv_heads // tp, hd)
-    q = rope(q, cos, sin)
-    k = rope(k, cos, sin)
-    att = attention(q, k, v, causal=True, impl="plain")
-    x = x + psum(matmul(att.reshape(B, T, -1), layer["wo"]["kernel"]), mesh, tp_axis)
-    h = replicate(rms_norm(x, layer["ffn_norm"]["scale"]), mesh, tp_axis)
-    ffn = matmul(F.silu(matmul(h, layer["w_gate"]["kernel"]))
-                 * matmul(h, layer["w_up"]["kernel"]), layer["w_down"]["kernel"])
-    return x + psum(ffn, mesh, tp_axis)
 
 
 def pp_stage_param_specs(stacked_params, *, pp_axis: str = "pp",
@@ -425,33 +526,36 @@ def llama_pp_loss(params, batch, cfg: LlamaConfig, mesh, *, n_microbatches: int,
         for i in range(per):
             yield _map_tree(lambda p: p[i], stage_params)
 
-    if tp_axis is not None:
-        def tp_block(layer, h):
-            if cfg.remat and torch.is_grad_enabled():
-                return checkpoint(_block_tp, layer, h, cos, sin, cfg, mesh, tp_axis,
-                                  use_reentrant=False)
-            return _block_tp(layer, h, cos, sin, cfg, mesh, tp_axis)
+    # with tp, each stage holds its Megatron slices (``param_specs``) and
+    # runs plain attention on its heads, as JAX's pipeline does
+    split = None if tp_axis is None else _Split(mesh, (), None, tp_axis)
+    impl = attn_impl if tp_axis is None else "plain"
 
-        def stage_fn(stage_params, h):
-            for layer in layers(stage_params):
-                h = tp_block(layer, h)
-            return h
+    def stage_fn(stage_params, h):
+        block = _maybe_remat_block(cfg)
+        for layer in layers(stage_params):
+            h, _ = block(layer, h, cos, sin, cfg, impl, split)
+        return h
 
-        param_specs = pp_stage_param_specs(params["stages"], tp_axis=tp_axis)
-    else:
-        def stage_fn(stage_params, h):
-            block = _maybe_remat_block(cfg)
-            for layer in layers(stage_params):
-                h, _ = block(layer, h, cos, sin, cfg, attn_impl)
-            return h
-
-        param_specs = None
+    param_specs = (None if tp_axis is None
+                   else pp_stage_param_specs(params["stages"], tp_axis=tp_axis))
 
     x = pipeline_apply(stage_fn, params["stages"], x, mesh,
                        n_microbatches=n_microbatches, batch_axis=batch_axis,
                        param_specs=param_specs)
     x = rms_norm(x, dense["norm"]["scale"])
     return _ce_loss(matmul(x, dense["lm_head"]["kernel"]), targets)
+
+
+def _shard_leaf(t):
+    """The tensor autograd and the optimizer see for a param: a ``DTensor``'s
+    local shard itself (its storage, so in-place updates show in the
+    ``DTensor``), any other tensor as it is. Updating the shards as plain
+    tensors keeps ``DTensor``'s per-op sharding propagation, which is slow
+    over a six-axis mesh, out of the optimizer step."""
+    from torch.distributed.tensor import DTensor
+
+    return t._local_tensor if isinstance(t, DTensor) else t
 
 
 class AdamW:
@@ -469,8 +573,9 @@ class AdamW:
 
     def init(self, params) -> torch.optim.AdamW:
         """The optimizer state over the leaves of ``params``, which become
-        leaf tensors that require grad and are updated in place."""
-        leaves = list(_leaves(params))
+        leaf tensors that require grad and are updated in place (for a
+        ``DTensor``, its local shard)."""
+        leaves = [_shard_leaf(t) for t in _leaves(params)]
         for t in leaves:
             t.requires_grad_(True)
         return torch.optim.AdamW(leaves, **self.hyper)
@@ -502,10 +607,11 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, *, mesh=None,
     the call shape of the JAX ``make_train_step``; ``opt_state`` is
     ``optimizer.init(params)``. The update is made in place, the
     counterpart of donating params and opt_state: the returned params and
-    opt_state are the objects passed in. With a mesh (sp, ep) every rank
-    passes the same params and batch and gets whole gradients, so every
-    rank makes the same update."""
-    _token_axes(mesh, "sp")  # refuses the axes that wait for Queue 1 item 5
+    opt_state are the objects passed in. With a mesh every rank passes
+    the same batch and the same params: whole tensors (each rank gets whole
+    gradients and makes the same update) or ``shard_pytree``'s DTensors
+    (each rank updates its local shards)."""
+    _split_for(mesh, "sp", cfg)  # a config that does not split over tp raises here
 
     def step(params, opt_state, batch):
         loss = llama_loss(params, batch, cfg, mesh=mesh, attn_impl=attn_impl)

@@ -12,6 +12,10 @@ computes the same loss and calls ``backward`` on it). So
 - ``shard``     global -> this rank's chunk; backward all-gathers the chunk
                 grads, so a replicated input gets its whole gradient;
 - ``gather``    chunks -> global; backward keeps this rank's chunk;
+- ``gather_sum`` chunks -> global; backward reduce-scatters (sums the
+                gradient over the group, then keeps this rank's chunk): an
+                fsdp weight gathered before use by ranks that hold
+                different tokens;
 - ``psum``      sum of per-rank partials (``lax.psum``); backward passes
                 the gradient through (Megatron's "g");
 - ``replicate`` identity; backward sums the gradient over the group, for a
@@ -33,9 +37,15 @@ import torch.distributed as dist
 
 def axis_size(mesh, name) -> int:
     """Size of mesh axis ``name`` (1 for ``mesh=None`` or an absent axis)."""
-    if mesh is None or name is None or name not in (mesh.mesh_dim_names or ()):
+    if mesh is None or name is None:
         return 1
-    return mesh.shape[mesh.mesh_dim_names.index(name)]
+    # read once per mesh: DeviceMesh.shape is recomputed on every access in
+    # some torch versions, and every collective of a step asks for it
+    sizes = getattr(mesh, "_rt_axis_sizes", None)
+    if sizes is None:
+        sizes = dict(zip(mesh.mesh_dim_names or (), mesh.shape))
+        mesh._rt_axis_sizes = sizes
+    return sizes.get(name, 1)
 
 
 def axis_index(mesh, name) -> int:
@@ -69,6 +79,22 @@ def _all_reduce(x, mesh, name):
     return x
 
 
+def _reduce_scatter(x, dim, mesh, name):
+    """The sum of ``x`` over axis ``name``, this rank's chunk of ``dim``.
+    NCCL reduce-scatters; gloo (which has no reduce-scatter on CUDA
+    tensors, nor on the CPU in some torch versions) all-reduces and
+    keeps the chunk."""
+    group = mesh.get_group(name)
+    if x.is_cuda and "nccl" in str(dist.get_backend(group)):
+        n = axis_size(mesh, name)
+        full = x.movedim(dim, 0).contiguous()
+        out = torch.empty((full.shape[0] // n, *full.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, full, group=group)
+        return out.movedim(0, dim).contiguous()
+    return _chunk(_all_reduce(x, mesh, name), dim, mesh, name).contiguous()
+
+
 class _Shard(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, mesh, name):
@@ -89,6 +115,17 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _chunk(g, *ctx.args).contiguous(), None, None, None
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, name):
+        ctx.args = (dim, mesh, name)
+        return _all_gather(x, dim, mesh, name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, *ctx.args), None, None, None
 
 
 class _Psum(torch.autograd.Function):
@@ -169,6 +206,12 @@ def shard(x, dim: int, mesh, name):
 def gather(x, dim: int, mesh, name):
     """The chunks of axis ``name`` concatenated along ``dim`` in rank order."""
     return x if axis_size(mesh, name) == 1 else _Gather.apply(x, dim, mesh, name)
+
+
+def gather_sum(x, dim: int, mesh, name):
+    """``gather``'s forward; its backward sums the gradient over axis
+    ``name`` before keeping this rank's chunk (a reduce-scatter)."""
+    return x if axis_size(mesh, name) == 1 else _GatherSum.apply(x, dim, mesh, name)
 
 
 def psum(x, mesh, name):

@@ -12,7 +12,8 @@ over the processes of the default group, one process per mesh position.
     ep    expert parallel (MoE all_to_all)
 
 The caller starts the default group (``torch.distributed.init_process_group``
-with its own rendezvous): NCCL for the card, gloo for the CPU.
+with its own rendezvous): NCCL for the card, gloo for the CPU (or for two
+data-parallel ranks sharing one card, which NCCL refuses).
 """
 from __future__ import annotations
 
@@ -52,8 +53,8 @@ class MeshSpec:
     def build(self, device=None):
         """A ``DeviceMesh`` over the default group's ranks, in row-major
         ``AXIS_ORDER`` as JAX reshapes its devices. ``device``: ``None``
-        means cuda (which needs an NCCL group); ``"cpu"`` needs gloo. The
-        world must hold exactly ``size`` ranks."""
+        means cuda (an NCCL group, or gloo for dp alone); ``"cpu"`` needs
+        gloo. The world must hold exactly ``size`` ranks."""
         from torch.distributed.device_mesh import init_device_mesh
 
         world = dist.get_world_size() if dist.is_initialized() else 1
@@ -65,10 +66,12 @@ class MeshSpec:
             raise ValueError(f"mesh covers {self.size} ranks ({self.axes}); the world has "
                              f"{world}: meshes over part of the world are not supported")
         dev = resolve_device(device)
-        want = "nccl" if dev.type == "cuda" else "gloo"
-        if want not in str(dist.get_backend()):
-            raise RuntimeError(f"a {dev.type} mesh needs a {want} process group, "
-                               f"have {dist.get_backend()!r}")
+        # gloo moves CUDA tensors too, but only by broadcast and all-reduce:
+        # enough for a mesh whose only split axis is dp (two ranks on one card)
+        want = ("nccl", "gloo") if dev.type == "cuda" else ("gloo",)
+        if not any(b in str(dist.get_backend()) for b in want):
+            raise RuntimeError(f"a {dev.type} mesh needs a {' or '.join(want)} process "
+                               f"group, have {dist.get_backend()!r}")
         return init_device_mesh(dev.type, tuple(self.axes.values()),
                                 mesh_dim_names=AXIS_ORDER)
 

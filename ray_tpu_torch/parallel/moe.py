@@ -78,23 +78,30 @@ def _experts(expert_in, w_up, w_down):
     return _einsum("ecf,efd->ecd", h, w_down)
 
 
-def _queue_offset(one_hot, b, t, mesh, ep_axis, seq_axis):
+def _queue_offset(one_hot, b, t, mesh, row_axes, seq_axis):
     """[b, E]: tokens routed to each expert before each local batch row's
-    sequence chunk, in the global order (batch rows split over ``ep_axis``,
-    sequences over ``seq_axis``)."""
+    sequence chunk, in the global order (batch rows split over
+    ``row_axes``, outermost first; sequences over ``seq_axis``)."""
     counts = one_hot.reshape(b, t, -1).sum(dim=1)  # [b, E] per local row
     counts = gather(counts[None], 0, mesh, seq_axis)  # [S, b, E]
-    counts = gather(counts[None], 0, mesh, ep_axis)  # [P, S, b, E]
-    P, S, _, E = counts.shape
+    row = 0
+    for ax in row_axes:  # this rank's block of rows, row-major over the axes
+        row = row * axis_size(mesh, ax) + axis_index(mesh, ax)
+    for ax in reversed(row_axes):
+        counts = gather(counts[None], 0, mesh, ax)  # [P_ax, ..., S, b, E]
+    S, E = counts.shape[-3], counts.shape[-1]
+    counts = counts.reshape(-1, S, b, E)  # [P, S, b, E]
+    P = counts.shape[0]
     ordered = counts.permute(0, 2, 1, 3).reshape(-1, E)  # global (row, chunk) order
     before = (torch.cumsum(ordered, dim=0) - ordered).reshape(P, b, S, E)
-    return before[axis_index(mesh, ep_axis), :, axis_index(mesh, seq_axis)]
+    return before[row, :, axis_index(mesh, seq_axis)]
 
 
 def moe_ffn_local(x, gate_w, w_up, w_down, *, capacity: int, mesh=None, ep_axis: str = "ep",
-                  seq_axis: str | None = None):
+                  seq_axis: str | None = None, row_axes: tuple = ()):
     """Per-rank MoE FFN. x [b, t, D] is this rank's tokens: batch rows split
-    over ``ep_axis`` and, with ``seq_axis``, sequences over that axis;
+    over ``row_axes`` (outermost first) and then ``ep_axis``, and, with
+    ``seq_axis``, sequences over that axis;
     w_up [E/ep, D, F] and w_down [E/ep, F, D] are this rank's experts;
     ``capacity`` is the per-expert capacity of the whole batch. Returns this
     rank's [b, t, D] output and the aux loss of the whole batch. With
@@ -102,12 +109,19 @@ def moe_ffn_local(x, gate_w, w_up, w_down, *, capacity: int, mesh=None, ep_axis:
     b, t, D = x.shape
     E = gate_w.shape[-1]
     n_ep = axis_size(mesh, ep_axis)
+    rows = (*row_axes, ep_axis)
     tokens = x.reshape(b * t, D)
     logits = _einsum("td,de->te", tokens, gate_w)
+
+    def total(s):
+        for ax in (*rows, seq_axis):
+            s = psum(s, mesh, ax)
+        return s
+
     dispatch, combine, aux = top1_gating(
         logits, E, capacity,
-        queue_offset=lambda oh: _queue_offset(oh, b, t, mesh, ep_axis, seq_axis),
-        total=lambda s: psum(psum(s, mesh, ep_axis), mesh, seq_axis))
+        queue_offset=lambda oh: _queue_offset(oh, b, t, mesh, rows, seq_axis),
+        total=total)
 
     expert_in = _einsum("tec,td->ecd", dispatch, tokens)  # my tokens' share, all experts
     C = expert_in.shape[1]

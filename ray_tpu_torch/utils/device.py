@@ -1,8 +1,11 @@
 """Device selection for the port.
 
-Counterpart of ``ray_tpu/utils/device.py`` (``is_tpu``). The port's entry
-points run on the CUDA card unless the caller asks for the CPU: with no
-CUDA device, ``resolve_device(None)`` raises instead of falling back.
+Counterpart of ``ray_tpu/utils/device.py`` (``is_tpu``, ``devices``,
+``local_device_count``). The port's entry points run on the CUDA card
+unless the caller asks for the CPU: with no CUDA device,
+``resolve_device(None)`` raises instead of falling back. JAX's
+``configure_jax`` (``RT_FORCE_CPU_DEVICES``) has no counterpart: a CPU
+world of N ranks is N gloo processes, one device each.
 """
 from __future__ import annotations
 
@@ -30,3 +33,14 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: the port runs on the card by default; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def devices() -> list[torch.device]:
+    """This process's CUDA devices (``jax.devices()``): the visible cards,
+    none without CUDA."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def local_device_count() -> int:
+    """``len(devices())``."""
+    return len(devices())

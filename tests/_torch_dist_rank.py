@@ -161,19 +161,46 @@ def case_mesh(inp, mesh, kw):
     return out
 
 
-def case_refuses(inp, mesh, kw):
-    cfg = tllama.LlamaConfig.tiny()
-    params = tllama.llama_init(torch.Generator().manual_seed(0), cfg, "cpu")
-    try:
-        tllama.llama_forward(params, torch.zeros(4, 8, dtype=torch.long), cfg, mesh=mesh)
-    except NotImplementedError as e:
-        return {"error": np.array(str(e))}
-    return {}
+def case_pp_forward(inp, mesh, kw):
+    """llama_forward with a pp axis: replicated compute, as under JAX's jit."""
+    cfg = _cfg(kw)
+    params = tllama.params_from_numpy(unflatten(inp, "p"), cfg, device="cpu")
+    with torch.no_grad():
+        logits, aux = tllama.llama_forward(params, torch.tensor(inp["tokens"]), cfg, mesh=mesh)
+    return {"logits": logits, "aux": aux}
+
+
+def case_step(inp, mesh, kw):
+    """llama_forward with the mesh (with ``forward``) and one make_train_step
+    step (with ``step``), from whole params or (with ``dtensor``) from
+    shard_pytree's DTensors."""
+    from torch.distributed.tensor import DTensor
+
+    cfg = _cfg(kw)
+    params = tllama.params_from_numpy(unflatten(inp, "p"), cfg, device="cpu")
+    tokens = torch.tensor(inp["tokens"])
+    if kw["dtensor"]:
+        params = shard_pytree(params, PartitionRules.llama(), mesh)
+    out = {}
+    if kw["forward"]:
+        with torch.no_grad():
+            out["logits"], out["aux"] = tllama.llama_forward(params, tokens[:, :-1], cfg,
+                                                             mesh=mesh)
+    if not kw["step"]:
+        return out
+    opt = tllama.AdamW(**kw["hyper"])
+    step = tllama.make_train_step(cfg, opt, mesh=mesh)
+    params, _, out["loss"] = step(params, opt.init(params), {"tokens": tokens})
+    for key, leaf in flatten(params).items():
+        if kw["dtensor"] != isinstance(leaf, DTensor):
+            raise AssertionError(f"{key} came back as {type(leaf).__name__}")
+        out[f"step/{key}"] = leaf.full_tensor() if kw["dtensor"] else leaf
+    return out
 
 
 CASES = {"attention": case_attention, "pipeline": case_pipeline, "moe": case_moe,
          "pp_loss": case_pp_loss, "llama": case_llama, "mesh": case_mesh,
-         "refuses": case_refuses}
+         "pp_forward": case_pp_forward, "step": case_step}
 
 
 def main() -> int:

@@ -16,7 +16,12 @@ SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
                "ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
                "ray_tpu_torch.parallel.ring_attention", "ray_tpu_torch.parallel.ulysses",
                "ray_tpu_torch.parallel.pipeline", "ray_tpu_torch.parallel.moe",
-               "ray_tpu_torch.utils", "ray_tpu_torch.entry", "ray_tpu_torch.kernels"]
+               "ray_tpu_torch.utils", "ray_tpu_torch.utils.serialization",
+               "ray_tpu_torch.entry", "ray_tpu_torch.kernels",
+               "ray_tpu_torch.accelerators", "ray_tpu_torch.accelerators.gpu",
+               "ray_tpu_torch.collective", "ray_tpu_torch.collective.torch_group",
+               "ray_tpu_torch.train", "ray_tpu_torch.train.worker",
+               "ray_tpu_torch.train.trainer"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():

@@ -89,10 +89,12 @@ def test_init_scales_and_layout():
 
 
 def test_moe_and_mesh_raise():
-    """MoE layers now port: the init draws JAX's layout and the forward
-    follows JAX's. What still raises: a mesh asking for whole-step dp, fsdp
-    or tp sharding (ROADMAP Queue 1 item 5), and the engine given MoE
-    params (its decode body, like JAX's, reads dense FFN weights)."""
+    """MoE layers port: the init draws JAX's layout and the forward follows
+    JAX's. A mesh over the axes that used to raise runs (the multi-rank
+    cases are in tests/test_torch_parallel.py): a pp axis is replicated
+    compute, with JAX's logits. What raises: tp over heads that do not
+    split (ValueError naming the config), and the engine given MoE params
+    (its decode body, like JAX's, reads dense FFN weights)."""
     import types
 
     from ray_tpu_torch.llm.engine import ContinuousBatchingEngine
@@ -114,11 +116,14 @@ def test_moe_and_mesh_raise():
     got, aux = tllama.llama_forward(params, torch.tensor(toks), cfg, attn_impl="plain")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
     np.testing.assert_allclose(float(aux), float(jaux), atol=1e-6, rtol=0)
-    for ax in ("dp", "fsdp", "tp"):
-        mesh = types.SimpleNamespace(mesh_dim_names=AXIS_ORDER,
-                                     shape=tuple(2 if a == ax else 1 for a in AXIS_ORDER))
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tllama.llama_forward(params, torch.tensor(toks), cfg, mesh=mesh)
+    pp2 = types.SimpleNamespace(mesh_dim_names=AXIS_ORDER, shape=(1, 1, 2, 1, 1, 1))
+    got, aux = tllama.llama_forward(params, torch.tensor(toks), cfg, attn_impl="plain",
+                                    mesh=pp2)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(float(aux), float(jaux), atol=1e-6, rtol=0)
+    tp4 = types.SimpleNamespace(mesh_dim_names=AXIS_ORDER, shape=(1, 1, 1, 4, 1, 1))
+    with pytest.raises(ValueError, match="n_kv_heads % 4 == 0"):
+        tllama.llama_forward(params, torch.tensor(toks), cfg, mesh=tp4)
     with pytest.raises(NotImplementedError, match="dense"):
         ContinuousBatchingEngine(params, cfg)
 

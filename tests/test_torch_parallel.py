@@ -160,6 +160,51 @@ def _llama_case(seed, cfg, B=2):
                     **{f"step/{k}": v for k, v in _flat(stepped).items()}}
 
 
+def _sharded_step_case(seed, cfg, mesh, B, forward, step):
+    """JAX's jitted train step with the dryrun's shardings (with ``step``):
+    params placed by ``specs_for_pytree(params, PartitionRules.llama())``,
+    batch rows on (dp, fsdp); and (with ``forward``) the forward's logits
+    and aux."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from ray_tpu.parallel.sharding import PartitionRules as JRules, specs_for_pytree
+
+    params = jllama.llama_init(jax.random.PRNGKey(1), cfg)
+    tokens = _rng(seed).integers(0, cfg.vocab_size, (B, 33)).astype(np.int32)
+    jm = _jmesh(**mesh)
+    opt = optax.adamw(**HYPER)
+    param_sh = jax.tree.map(lambda sp: NamedSharding(jm, sp),
+                            specs_for_pytree(params, JRules.llama()))
+    batch_sh = NamedSharding(jm, P(("dp", "fsdp")))
+
+    def train_step(params, opt_state, batch):
+        loss, grads = jax.value_and_grad(
+            lambda p: jllama.llama_loss(p, batch, cfg, mesh=jm, attn_impl="auto"))(params)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss
+
+    expected = {}
+    if step:
+        jstep = jax.jit(train_step, in_shardings=(param_sh, None, batch_sh),
+                        out_shardings=(param_sh, None, NamedSharding(jm, P())))
+        placed = jax.device_put(params, param_sh)
+        stepped, _, loss = jstep(placed, opt.init(placed),
+                                 {"tokens": jax.device_put(jnp.asarray(tokens), batch_sh)})
+        expected = {"loss": loss, **{f"step/{k}": v for k, v in _flat(stepped).items()}}
+    if forward:
+        expected["logits"], expected["aux"] = jax.jit(
+            lambda p, t: jllama.llama_forward(p, t, cfg))(params, tokens[:, :-1])
+    return {"tokens": tokens, **{f"p/{k}": v for k, v in _flat(params).items()}}, expected
+
+
+def _pp_forward_case(seed, cfg):
+    params = jllama.llama_init(jax.random.PRNGKey(2), cfg)
+    tokens = _rng(seed).integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    logits, aux = jax.jit(lambda p, t: jllama.llama_forward(p, t, cfg))(params, tokens)
+    return ({"tokens": tokens, **{f"p/{k}": v for k, v in _flat(params).items()}},
+            {"logits": logits, "aux": aux})
+
+
 def _cfg_kw(cfg):
     return {f: getattr(cfg, f) for f in cfg.__dataclass_fields__}
 
@@ -167,6 +212,37 @@ def _cfg_kw(cfg):
 MOE_CFG = jllama.LlamaConfig.tiny(n_experts=4)
 MOE_DROPS_CFG = jllama.LlamaConfig.tiny(n_experts=4, capacity_factor=0.5)
 DENSE_CFG = jllama.LlamaConfig.tiny()
+# four kv heads, so that tp=4 splits them
+TP4_CFG = jllama.LlamaConfig(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=4,
+                             d_ff=128, max_seq_len=128, dtype="float32")
+
+
+def _step(name, seed, cfg, mesh, B, dtensor, forward=False, step=True):
+    """A whole-step sharding case: (helper fn, mesh, kwargs, maker)."""
+    kw = {"cfg": _cfg_kw(cfg), "hyper": HYPER, "dtensor": dtensor, "forward": forward,
+          "step": step}
+    return name, ("step", mesh, kw,
+                  lambda: _sharded_step_case(seed, cfg, mesh, B, forward, step))
+
+
+# whole-step sharding (dp, fsdp, tp with sp and ep): whole params or
+# shard_pytree's DTensors, against JAX's sharded jitted step. The MoE cases
+# run at capacity factor 0.5, so the 4 experts keep at most half the tokens
+# (drops are certain). The MoE step has one row a rank; two rows a rank are
+# held by the forward (logits, aux): one AdamW step there moves an
+# embedding element whose gradient (~1e-7) is below eps by up to
+# lr / eps = 1e4 times the gradients' float32 rounding, which differs
+# between the packages unsharded too.
+STEP_CASES = dict([
+    _step("step_dp2_tp2", 17, DENSE_CFG, {"dp": 2, "tp": 2}, B=4, dtensor=False),
+    _step("step_dp2_fsdp2", 18, DENSE_CFG, {"dp": 2, "fsdp": 2}, B=8, dtensor=True),
+    _step("step_fsdp2_ep2_moe", 19, MOE_DROPS_CFG, {"fsdp": 2, "ep": 2}, B=4, dtensor=True,
+          forward=True),
+    _step("forward_dp2_ep2_moe_rows2", 23, MOE_DROPS_CFG, {"dp": 2, "ep": 2}, B=8,
+          dtensor=False, forward=True, step=False),
+    _step("step_dp2_sp2", 20, DENSE_CFG, {"dp": 2, "sp": 2}, B=4, dtensor=False),
+    _step("forward_tp4", 21, TP4_CFG, {"tp": 4}, B=2, dtensor=True, forward=True),
+])
 
 # name -> (rank helper function, mesh axes, helper kwargs, maker of (inputs, expected))
 CASES = {
@@ -211,7 +287,10 @@ CASES = {
                         lambda: _llama_case(13, DENSE_CFG)),
     "mesh": ("mesh", {"fsdp": 2, "tp": 2}, {},
              lambda: ({"wq": _f32(_rng(14), 8, 8)}, {})),
-    "refuses": ("refuses", {"dp": 4}, {}, lambda: ({}, {})),
+    # pp in llama_forward is replicated compute, as under JAX's jit
+    "pp_forward": ("pp_forward", {"pp": 4}, {"cfg": _cfg_kw(MOE_CFG)},
+                   lambda: _pp_forward_case(22, MOE_CFG)),
+    **STEP_CASES,
 }
 
 
@@ -381,9 +460,33 @@ def test_mesh_and_shard_pytree_on_the_world(world):
 
 
 def test_sharded_forward_refuses_whole_step_axes(world):
-    ranks, _ = _case(world, "refuses")
-    for got in ranks:
-        assert "item 5" in str(got["error"])
+    """What was refused (dp, fsdp, tp, pp) now runs: a pp axis in
+    llama_forward is replicated compute, every rank with JAX's logits."""
+    ranks, expected = _case(world, "pp_forward")
+    for r, got in enumerate(ranks):
+        np.testing.assert_allclose(got["logits"], expected["logits"], atol=1e-4, rtol=0,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_allclose(got["aux"], expected["aux"], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("name", sorted(STEP_CASES))
+def test_whole_step_sharding_matches_jax_sharded_step(world, name):
+    """Logits 1e-4 and aux 1e-6 of the forward; the loss rtol 1e-5 and every
+    leaf after one AdamW step 1e-4 (HYPER's eps 1e-6), on every rank;
+    DTensor params through full_tensor()."""
+    ranks, expected = _case(world, name)
+    for r, got in enumerate(ranks):
+        assert set(got) == set(expected), (r, sorted(set(got) ^ set(expected)))
+        if "logits" in expected:
+            np.testing.assert_allclose(got["logits"], expected["logits"], atol=1e-4, rtol=0,
+                                       err_msg=f"rank {r} logits")
+            np.testing.assert_allclose(got["aux"], expected["aux"], atol=1e-6, rtol=0)
+        if "loss" in expected:
+            np.testing.assert_allclose(got["loss"], expected["loss"], rtol=1e-5,
+                                       err_msg=f"rank {r}")
+        for key in [k for k in expected if k.startswith("step/")]:
+            np.testing.assert_allclose(got[key], expected[key], atol=1e-4, rtol=0,
+                                       err_msg=f"rank {r} {key}")
 
 
 # ------------------------------------------------ single-process checks

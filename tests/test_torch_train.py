@@ -146,9 +146,12 @@ def test_make_train_step_follows_jax(jparams):
 
 
 def test_make_train_step_mesh_and_moe_raise():
-    """make_train_step now takes MoE configs: three steps follow JAX's (the
-    aux loss and the float32 promotion included). A mesh asking for
-    whole-step dp/fsdp/tp sharding still raises (ROADMAP Queue 1 item 5)."""
+    """make_train_step takes MoE configs: three steps follow JAX's (the aux
+    loss and the float32 promotion included). And a mesh over the axes
+    that used to raise now runs: a pp axis in llama_forward is replicated
+    compute, as under JAX's jit (logits equal JAX's, and a step on that mesh
+    follows the unsharded one); tp needs heads and d_ff that split, and
+    names the config when they do not."""
     import types
 
     from ray_tpu_torch.parallel.mesh import AXIS_ORDER
@@ -171,6 +174,26 @@ def test_make_train_step_mesh_and_moe_raise():
     for path, w in jax.tree_util.tree_flatten_with_path(jp)[0]:
         np.testing.assert_allclose(_leaf(tp, path).detach().numpy(), np.asarray(w),
                                    atol=1e-4, rtol=0, err_msg=jax.tree_util.keystr(path))
-    mesh = types.SimpleNamespace(mesh_dim_names=AXIS_ORDER, shape=(2, 1, 1, 1, 1, 1))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tllama.make_train_step(tcfg, tllama.AdamW(1e-3), mesh=mesh)
+
+    # a pp axis of 2 (one process: pp issues no collective in llama_forward)
+    pp2 = types.SimpleNamespace(mesh_dim_names=AXIS_ORDER, shape=(1, 1, 2, 1, 1, 1))
+    want, want_aux = jllama.llama_forward(jparams, jnp.asarray(batch[:, :-1]), jcfg)
+    fresh = tllama.params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    with torch.no_grad():
+        got, aux = tllama.llama_forward(fresh, torch.tensor(batch[:, :-1]), tcfg, mesh=pp2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(float(aux), float(want_aux), atol=1e-6, rtol=0)
+    ref = tllama.params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    ropt = tllama.AdamW(**HYPER)
+    _, _, ref_loss = tllama.make_train_step(tcfg, ropt)(ref, ropt.init(ref),
+                                                        {"tokens": torch.tensor(batch)})
+    popt = tllama.AdamW(**HYPER)
+    _, _, pp_loss = tllama.make_train_step(tcfg, popt, mesh=pp2)(
+        fresh, popt.init(fresh), {"tokens": torch.tensor(batch)})
+    np.testing.assert_allclose(float(pp_loss), float(ref_loss), rtol=1e-6)
+    for a, b in zip(tllama._leaves(fresh), tllama._leaves(ref)):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), atol=1e-6, rtol=0)
+
+    tp4 = types.SimpleNamespace(mesh_dim_names=AXIS_ORDER, shape=(1, 1, 1, 4, 1, 1))
+    with pytest.raises(ValueError, match="n_kv_heads % 4"):
+        tllama.make_train_step(tcfg, tllama.AdamW(1e-3), mesh=tp4)

@@ -1,0 +1,123 @@
+"""TorchTrainer: the port's versions of JAX's four trainer tests
+(``tests/test_train.py``), on the CPU with gloo worker processes.
+
+The loops live in ``tests/_torch_train_loops.py``: a worker imports its loop
+by name. The pytest process starts the workers with ``subprocess.Popen``
+and never joins a process group itself; every attempt runs under a clock
+(``trainer.ATTEMPT_TIMEOUT_S``) and every worker is killed on the way out.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+import _torch_train_loops as loops
+from ray_tpu_torch.train import (
+    CheckpointConfig,
+    FailureConfig,
+    RunConfig,
+    ScalingConfig,
+    TorchTrainer,
+)
+from ray_tpu_torch.train import trainer as trainer_mod
+
+
+@pytest.fixture(autouse=True)
+def clock(monkeypatch):
+    monkeypatch.setattr(trainer_mod, "ATTEMPT_TIMEOUT_S", 60.0)
+
+
+def test_torch_trainer_dp(tmp_path):
+    trainer = TorchTrainer(
+        loops.dp_train_loop,
+        train_loop_config={"lr": 0.1, "steps": 40},
+        scaling_config=ScalingConfig(num_workers=2, use_gpu=False, collective_backend="gloo"),
+        run_config=RunConfig(
+            name="dp_test",
+            storage_path=str(tmp_path / "ckpts"),
+            checkpoint_config=CheckpointConfig(num_to_keep=2),
+        ),
+    )
+    result = trainer.fit()
+    assert result.error is None, result.error
+    assert result.metrics["loss"] < 1.0
+    assert result.checkpoint is not None
+    state = result.checkpoint.to_dict()
+    np.testing.assert_allclose(state["w"], [1, 2, 3, 4], atol=0.5)
+    # top-K retention
+    assert len(os.listdir(tmp_path / "ckpts")) <= 2
+    # both ranks reported every checkpointed step; only rank 0's were kept
+    assert sorted({m["world_rank"] for m in result.metrics_history}) == [0, 1]
+
+
+def test_torch_trainer_single_worker(tmp_path):
+    trainer = TorchTrainer(
+        loops.answer_loop,
+        train_loop_config={"x": 21},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=False, collective_backend="gloo"),
+        run_config=RunConfig(storage_path=str(tmp_path / "c2")),
+    )
+    result = trainer.fit()
+    assert result.metrics["answer"] == 42
+
+
+def test_torch_trainer_worker_failure_restarts(tmp_path):
+    """FailureConfig path: worker 1 dies once, the group restarts and
+    resumes from the last checkpoint."""
+    marker = str(tmp_path / "crashed_once")
+    trainer = TorchTrainer(
+        loops.flaky_loop,
+        train_loop_config={"marker": marker},
+        scaling_config=ScalingConfig(num_workers=2, use_gpu=False, collective_backend="gloo"),
+        run_config=RunConfig(
+            storage_path=str(tmp_path / "c3"),
+            failure_config=FailureConfig(max_failures=2),
+        ),
+    )
+    result = trainer.fit()
+    assert result.error is None, result.error
+    assert os.path.exists(marker)  # crash really happened
+    assert result.metrics["step"] == 5  # and training still completed
+    # the restart began where rank 0's latest checkpoint left off, not at 0
+    assert result.metrics["start"] > 0
+
+
+def test_trainer_failure_exhausts(tmp_path):
+    trainer = TorchTrainer(
+        loops.always_fails,
+        train_loop_config={},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=False, collective_backend="gloo"),
+        run_config=RunConfig(
+            storage_path=str(tmp_path / "c4"),
+            failure_config=FailureConfig(max_failures=1),
+        ),
+    )
+    result = trainer.fit()
+    assert result.error is not None
+    assert "nope" in str(result.error)
+
+
+def test_nested_loop_is_refused():
+    def nested(config):
+        return config
+
+    with pytest.raises(ValueError, match="importable"):
+        TorchTrainer(nested)
+
+
+def test_trainer_defaults_to_the_card(tmp_path, monkeypatch):
+    """As every port entry point: no ``use_gpu`` means the card, which
+    raises without CUDA instead of training on the CPU; only an explicit
+    ``use_gpu=False`` gives gloo workers on the CPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for scaling in (ScalingConfig(), ScalingConfig(use_gpu=True)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            scaling.backend()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TorchTrainer(loops.answer_loop, train_loop_config={"x": 1}, scaling_config=scaling,
+                         run_config=RunConfig(storage_path=str(tmp_path / "c5"))).fit()
+    cpu = ScalingConfig(use_gpu=False)
+    assert cpu.backend() == "gloo" and "GPU" not in cpu.worker_resources()
