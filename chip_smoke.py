@@ -115,6 +115,31 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               numpy giving the sum on both ranks.
 12. dryrun  — ray_tpu_torch.entry.dryrun_multichip(1): NCCL at world size 1,
               then the trainer arm's two workers.
+13. rllib_parity — ray_tpu_torch.rllib on the card, float32, TF32 off: one
+              update of each of PPO (minibatches 1), IMPALA, APPO, DQN, SAC,
+              BC and CQL from weights drawn once and a fixed batch, against
+              the same update on the CPU, each leaf's max error over its
+              largest value within 1e-5: in float32 the loss and every
+              gradient leaf, in float64 every updated leaf (target critics
+              too; Adam carries float32's rounding of cancellation-small
+              gradients into whole steps); ms per float32 update on the card
+              and on the host CPU. The port's CartPole-v1, 2000 random-action
+              steps of 8 envs, twice from one seed, must give equal bytes.
+14. rllib_ppo — PPO on the port's CartPole-v1 at test_ppo_learns_cartpole's
+              settings (2 runners x 4 envs x 128 steps, lr 1e-3, 4 epochs x
+              4 minibatches, hidden 64), 8 iterations: best mean return >
+              max(60, 1.5 x first), params on cuda; per iteration sample ms,
+              update ms and env steps/s.
+15. rllib_offpolicy — DQN, IMPALA, APPO and SAC at their JAX tests'
+              settings and iteration counts, each held to its test's bar,
+              and the two-agent runner (TwoAgentTag) with per-policy PPO.
+16. rllib_offline — collect_rollouts -> OfflineData -> BC (agreement with
+              the expert > 0.8) and CQL (prefers the logged action on > 0.9).
+17. rllib_learners — two Learner ranks in two processes sharing the card
+              over gloo, one with an empty shard: equal params and Adam
+              moments after the sync (the mean of the update and the initial
+              state), step counts 16 and 0.
+              Each rllib phase reads the flash kernels' launches: 0.
 
 Then the {"kernels": [...]} line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -123,6 +148,7 @@ ray_tpu_torch package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import asyncio
+import collections
 import dataclasses
 import gc
 import json
@@ -1797,11 +1823,14 @@ def phase_moe_train(card: str, kernels) -> tuple[dict, dict]:
 
 
 def _named_leaves(tree, prefix=""):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _named_leaves(v, f"{prefix}/{k}" if prefix else k)
-    else:
+    """(``"a/b/0/w"``, leaf) of every leaf of nested dicts and lists."""
+    items = enumerate(tree) if isinstance(tree, list) else (
+        tree.items() if isinstance(tree, dict) else None)
+    if items is None:
         yield prefix, tree
+        return
+    for k, v in items:
+        yield from _named_leaves(v, f"{prefix}/{k}" if prefix else str(k))
 
 
 def phase_parallel(card: str) -> None:
@@ -2212,6 +2241,578 @@ def phase_dryrun(card: str) -> None:
           "card": card})
 
 
+# --------------------------------------------------------------------- rllib
+# ray_tpu_torch.rllib in process on the card: float32, TF32 off, no flash
+# kernel on the path (small MLPs; the launches are read to be 0).
+# Card against CPU, each leaf's max |diff| over its max |value|: in float32
+# (the drivers' dtype) the loss and every gradient leaf; in float64 every
+# updated leaf. Adam normalises each element's step by its own gradient
+# history (lr * m / (sqrt(v) + 1e-8)), so an element whose gradient is a
+# cancellation far below its leaf's largest carries float32's summation-order
+# noise into its step at up to a few percent of lr, so zero-initialised
+# biases, whose values are a few steps of lr, can miss 1e-5 in float32
+# between two correct devices (the phase prints the float32 reading beside).
+# In float64 that noise is ~1e-9 times smaller.
+RL_TOL = 1e-5
+RL_HIDDEN = 64
+
+
+def _rl_update_cases():
+    """name -> (update, optimizer, weights, target weights or None, batch):
+    one update of each algorithm from weights drawn once (JAX-layout numpy
+    trees) and a fixed batch at the shape the main path gives it (PPO: the
+    1024 samples of an iteration, minibatches=1; IMPALA/APPO: a [64, 4]
+    fragment; the rest: a 128-row replay or offline minibatch)."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import appo, core, dqn, impala, learner, offline, sac
+
+    g = core.seeded(SEED + 20, "cpu")
+    pol = core.params_to_numpy(core.policy_init(g, 4, 2, RL_HIDDEN, "cpu"))
+    q, q_target = (core.params_to_numpy(dqn.q_init(g, 4, 2, RL_HIDDEN, "cpu"))
+                   for _ in range(2))
+    soft = core.params_to_numpy(sac.sac_init(g, 4, 2, RL_HIDDEN, 0.5, "cpu"))
+    soft_target = {k: core.params_to_numpy(sac.sac_init(g, 4, 2, RL_HIDDEN, 0.5, "cpu"))[k]
+                   for k in ("q1", "q2")}
+    rng = np.random.default_rng(SEED + 21)
+    n, T, N = 1024, 64, 4
+    ppo_batch = {"obs": rng.normal(size=(n, 4)).astype(np.float32),
+                 "actions": rng.integers(0, 2, n).astype(np.int32),
+                 "logp_old": np.log(rng.uniform(0.3, 0.7, n)).astype(np.float32),
+                 "advantages": rng.normal(size=n).astype(np.float32),
+                 "returns": rng.normal(size=n).astype(np.float32)}
+    vtrace_batch = {"obs": rng.normal(size=(T, N, 4)).astype(np.float32),
+                    "actions": rng.integers(0, 2, (T, N)).astype(np.int32),
+                    "logp": np.log(rng.uniform(0.3, 0.7, (T, N))).astype(np.float32),
+                    "rewards": np.ones((T, N), np.float32),
+                    "dones": rng.random((T, N)) < 0.05,
+                    "last_obs": rng.normal(size=(N, 4)).astype(np.float32)}
+    m = 128
+    trans = {"obs": rng.normal(size=(m, 4)).astype(np.float32),
+             "actions": rng.integers(0, 2, m).astype(np.int32),
+             "rewards": (rng.normal(size=m) * 2).astype(np.float32),
+             "next_obs": rng.normal(size=(m, 4)).astype(np.float32),
+             "dones": (rng.random(m) < 0.1).astype(np.float32)}
+    vt = dict(lr=1e-3, gamma=0.99, vf_coeff=0.5, entropy_coeff=0.01, rho_bar=1.0, c_bar=1.0)
+    return {
+        "ppo": (*learner.make_ppo_update(0.2, 0.5, 0.01, 1e-3, 2, 1), pol, None, ppo_batch),
+        "impala": (*impala.make_impala_update(**vt), pol, None, vtrace_batch),
+        "appo": (*appo.make_appo_update(**vt, clip=0.3), pol, None, vtrace_batch),
+        "dqn": (*dqn.make_dqn_update(1e-3, 0.99), q, q_target,
+                {**trans, "weights": rng.uniform(0.2, 1.0, m).astype(np.float32)}),
+        "sac": (*sac.make_sac_update(1e-3, 0.99, 0.01, 0.6), soft, soft_target, trans),
+        "bc": (*offline.make_bc_update(1e-3), pol, None,
+               {"obs": trans["obs"], "actions": trans["actions"]}),
+        "cql": (*offline.make_cql_update(1e-3, 0.99, 0.005, 0.6, 1.0), soft, soft_target,
+                trans),
+    }
+
+
+def _rl_update(name, case, device, dtype):
+    """(module, target, outputs, step): one update of ``case`` on ``device``
+    in ``dtype``, and a function that takes another."""
+    from ray_tpu_torch.rllib import core, learner
+
+    update, optimizer, weights, target_weights, batch = case
+    module = core.params_from_numpy(weights, device).to(dtype)
+    target = (None if target_weights is None
+              else core.params_from_numpy(target_weights, device).to(dtype))
+    opt = optimizer.init(module)
+    tb = {k: v.to(dtype) if v.is_floating_point() else v
+          for k, v in learner.to_tensors(batch, device).items()}
+    if name == "ppo":
+        def step():
+            return update(module, opt, tb, core.seeded(SEED, device))
+    elif target is None:
+        def step():
+            return update(module, opt, tb)
+    else:
+        def step():
+            return update(module, target, opt, tb)
+    out = step()
+    return module, target, out, step
+
+
+def _rl_leaf_errors(got, want) -> dict:
+    """name -> (max |got - want| over max |want|, |got - want| / |want| in
+    L2) of each leaf of two JAX-layout trees."""
+    import numpy as np
+
+    out = {}
+    for name, g in _named_leaves(got):
+        w = _lookup(want, name)
+        d = np.asarray(g, np.float64) - w
+        out[name] = (float(np.abs(d).max() / max(float(np.abs(w).max()), 1e-30)),
+                     float(np.linalg.norm(d) / max(float(np.linalg.norm(w)), 1e-30)))
+    return out
+
+
+def _rl_grad_errors(a, b) -> dict:
+    """name -> max |grad_a - grad_b| over max |grad_b| of the gradients the
+    last optimizer step of two modules used."""
+    out = {}
+    for (name, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
+        if pa.grad is None and pb.grad is None:  # a head the loss does not use (BC's vf)
+            continue
+        ga, gb = pa.grad.detach().cpu().double(), pb.grad.detach().cpu().double()
+        out[name] = float((ga - gb).abs().max() / max(float(gb.abs().max()), 1e-30))
+    return out
+
+
+def _lookup(tree, name):
+    for part in name.split("/"):
+        tree = tree[int(part)] if isinstance(tree, list) else tree[part]
+    return tree
+
+
+def rl_cartpole(venv, seed: int, steps: int):
+    """(observations, rewards and flags as bytes, episodes ended, seconds):
+    ``steps`` random-action steps of ``venv`` after ``reset(seed)``."""
+    import numpy as np
+
+    obs, _ = venv.reset(seed=seed)
+    rng = np.random.default_rng(seed)
+    parts, ended = [obs.tobytes()], 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        obs, rew, term, trunc, _ = venv.step(rng.integers(0, 2, venv.num_envs))
+        parts += [obs.tobytes(), rew.tobytes(), term.tobytes(), trunc.tobytes()]
+        ended += int((term | trunc).sum())
+    return b"".join(parts), ended, time.perf_counter() - t0
+
+
+def phase_rllib_parity(card: str) -> None:
+    """One update of PPO, IMPALA, APPO, DQN, SAC, BC and CQL on the card
+    against the same update on the CPU from the same weights and batch:
+    in float32 the loss and every gradient leaf, in float64 every updated
+    leaf (target critics too), within RL_TOL (see there); the card's and
+    the host CPU's ms per float32 update. The port's CartPole-v1, 2000
+    random-action steps of 8 envs, twice from one seed: equal bytes."""
+    import statistics
+
+    import torch
+
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.rllib import core, envs
+
+    kernels.LAUNCHES.clear()
+    rows = {}
+    for name, case in _rl_update_cases().items():
+        mod_c, tgt_c, out_c, step_c = _rl_update(name, case, "cuda", torch.float32)
+        mod_h, tgt_h, out_h, step_h = _rl_update(name, case, "cpu", torch.float32)
+        grads = _rl_grad_errors(mod_c, mod_h)
+        f32 = _rl_leaf_errors(core.params_to_numpy(mod_c), core.params_to_numpy(mod_h))
+        loss_c = float((out_c if isinstance(out_c, tuple) else (out_c,))[0])
+        loss_h = float((out_h if isinstance(out_h, tuple) else (out_h,))[0])
+        pairs = [(m, t) for m, t, _, _ in (_rl_update(name, case, dev, torch.float64)
+                                            for dev in ("cuda", "cpu"))]
+        errs = _rl_leaf_errors(*(core.params_to_numpy(m) for m, _ in pairs))
+        if tgt_c is not None:
+            errs.update({f"target/{k}": v for k, v in _rl_leaf_errors(
+                *(core.params_to_numpy(t) for _, t in pairs)).items()})
+        worst = max(errs, key=lambda k: errs[k][0])
+        worst_grad = max(grads, key=grads.get)
+        worst_f32 = max(f32, key=lambda k: f32[k][0])
+        card_ms = cuda_ms(step_c, iters=20, warmup=3)
+        host = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            step_h()
+            host.append((time.perf_counter() - t0) * 1e3)
+        rows[name] = {"loss_cuda": loss_c, "loss_cpu": loss_h,
+                      "loss_rel_diff": abs(loss_c - loss_h) / max(abs(loss_h), 1e-30),
+                      "grad_max_rel_err": grads[worst_grad], "worst_grad": worst_grad,
+                      "f64_leaf_max_rel_err": errs[worst][0], "f64_worst_leaf": worst,
+                      "f32_leaf_max_rel_err": f32[worst_f32][0], "f32_worst_leaf": worst_f32,
+                      "f32_leaf_rel_l2": max(v[1] for v in f32.values()),
+                      "leaves": len(errs), "update_ms_cuda": card_ms,
+                      "update_ms_host_cpu": statistics.median(host)}
+        if not (rows[name]["loss_rel_diff"] <= RL_TOL and grads[worst_grad] <= RL_TOL
+                and errs[worst][0] <= RL_TOL):
+            raise AssertionError(f"rllib_parity {name}: {rows[name]}")
+        if next(mod_c.parameters()).device.type != "cuda":
+            raise AssertionError(f"rllib_parity {name}: the module left the card")
+    venv = envs.make_vec("CartPole-v1", 8)
+    first, ended, secs = rl_cartpole(venv, SEED, 2000)
+    again, ended2, _ = rl_cartpole(venv, SEED, 2000)
+    flash = sum(kernels.launches().values())
+    emit({"phase": "rllib_parity", "tol": RL_TOL, "hidden": RL_HIDDEN, "updates": rows,
+          "cartpole": {"envs": 8, "steps": 2000, "episodes_ended": ended,
+                       "host_env_steps_per_s": 8 * 2000 / secs, "reseed_equal": first == again},
+          "flash_launches": flash, "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "card": card})
+    if first != again or ended != ended2 or ended < 100:
+        raise AssertionError(f"CartPole copy is not deterministic ({ended}, {ended2})")
+    if flash:
+        raise AssertionError(f"rllib_parity launched flash kernels: {kernels.launches()}")
+
+
+def rl_instrument(algo) -> dict:
+    """Record the host ms of each runner's ``sample`` (it ends in a copy to
+    the host, so the device work is inside); the caller times ``train()``
+    around it. Wraps instance attributes only."""
+    times = {"sample_ms": []}
+
+    def wrap(fn):
+        def inner(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            times["sample_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return inner
+
+    for r in algo.runners:
+        r.sample = wrap(r.sample)
+    return times
+
+
+def rl_curve(algo, iters: int, steps_per_sample: int) -> dict:
+    """``iters`` train() calls: per iteration the mean return, the sample
+    ms, the rest of train() (updates, replay, weight copies) as update ms,
+    and the env steps per second of sampling."""
+    import numpy as np
+    import torch
+
+    times = rl_instrument(algo)
+    rets, sample_ms, update_ms, rates = [], [], [], []
+    for _ in range(iters):
+        n0 = len(times["sample_ms"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ret = algo.train()["episode_return_mean"]
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+        s = sum(times["sample_ms"][n0:])
+        rets.append(ret)
+        sample_ms.append(s)
+        update_ms.append(total - s)
+        rates.append(steps_per_sample * (len(times["sample_ms"]) - n0) / s * 1e3)
+    finite = [r for r in rets if not np.isnan(r)]
+    return {"returns": rets, "first": finite[0] if finite else None,
+            "best": max(finite) if finite else 0.0, "sample_ms": sample_ms,
+            "update_ms": update_ms, "env_steps_per_s": rates,
+            "device": next(algo.get_weights().parameters()).device.type}
+
+
+def phase_rllib_ppo(card: str) -> dict:
+    """PPO on the port's CartPole-v1 at test_ppo_learns_cartpole's settings
+    (2 runners x 4 envs x 128 steps, lr 1e-3, 4 epochs x 4 minibatches,
+    hidden 64), 8 iterations on the card: best > max(60, 1.5 x first),
+    params on cuda, no flash launch."""
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.rllib import PPOConfig
+
+    kernels.LAUNCHES.clear()
+    algo = (PPOConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                         rollout_fragment_length=128)
+            .training(lr=1e-3, minibatches=4, epochs=4, hidden=64).build())
+    run = rl_curve(algo, 8, 4 * 128)
+    flash = dict(kernels.launches())
+    emit({"phase": "rllib_ppo", "iterations": 8, **run, "flash_launches": flash,
+          "bar": "best > max(60, 1.5 x first)", "card": card})
+    if run["device"] != "cuda" or sum(flash.values()):
+        raise AssertionError(f"rllib_ppo ran on {run['device']}, flash {flash}")
+    if run["first"] is None or not run["best"] > max(60.0, 1.5 * run["first"]):
+        raise AssertionError(f"PPO did not learn: first {run['first']}, best {run['best']}")
+    return flash
+
+
+class TwoAgentTag:
+    """The two-agent env of test_multi_agent_env_runner_learns_per_policy:
+    each agent sees [own_state, other_state] and is rewarded for matching
+    (agent a) / mismatching (agent b) the other's last action."""
+
+    agents = ["a", "b"]
+
+    def reset(self, seed=None):
+        import numpy as np
+
+        self._state = np.random.default_rng(seed).integers(0, 2, size=2).astype(np.float32)
+        self._t = 0
+        return self._obs()
+
+    def _obs(self):
+        import numpy as np
+
+        s = self._state
+        return {"a": np.array([s[0], s[1]], np.float32), "b": np.array([s[1], s[0]], np.float32)}
+
+    def step(self, action_dict):
+        import numpy as np
+
+        self._t += 1
+        a, b = action_dict["a"], action_dict["b"]
+        rew = {"a": 1.0 if a == int(self._state[1]) else 0.0,
+               "b": 1.0 if b != int(self._state[0]) else 0.0}
+        self._state = np.array([a, b], np.float32)
+        return self._obs(), rew, {"a": False, "b": False, "__all__": self._t >= 16}, \
+            {"__all__": False}, {}
+
+    def observation_space_shape(self, agent_id):
+        return (2,)
+
+    def n_actions(self, agent_id):
+        return 2
+
+
+def rl_multi_agent() -> dict:
+    """The two-agent runners of test_multi_agent_env_runner_learns_per_policy
+    on the card: 2 runners, one policy per agent, 12 iterations of 64 steps
+    and per-policy PPO updates (lr 5e-3, 4 epochs x 2 minibatches)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib import MultiAgentEnvRunner, compute_gae, core, make_ppo_update
+    from ray_tpu_torch.rllib.learner import to_tensors
+
+    runners = [MultiAgentEnvRunner(TwoAgentTag, policy_mapping_fn=lambda aid: aid, seed=i)
+               for i in range(2)]
+    spaces = runners[0].spaces()
+    params = {pid: core.policy_init(core.seeded(i, "cpu"), *spaces[pid], hidden=32)
+              for i, pid in enumerate(sorted(spaces))}
+    update, opt = make_ppo_update(clip=0.2, vf_coeff=0.5, entropy_coeff=0.01, lr=5e-3,
+                                  epochs=4, minibatches=2)
+    states = {pid: opt.init(p) for pid, p in params.items()}
+    first, last, sample_ms, update_ms = {}, {}, [], []
+    for it in range(12):
+        for r in runners:
+            r.set_weights(params)
+        t0 = time.perf_counter()
+        rollouts = [r.sample(64) for r in runners]
+        t1 = time.perf_counter()
+        for pid in params:
+            batches = [compute_gae(ro[pid], 0.99, 0.95) for ro in rollouts]
+            batch = {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+            update(params[pid], states[pid], to_tensors(batch, "cuda"), core.seeded(it, "cuda"))
+        torch.cuda.synchronize()
+        sample_ms.append((t1 - t0) * 1e3)
+        update_ms.append((time.perf_counter() - t1) * 1e3)
+        metrics = [r.episode_metrics() for r in runners]
+        for agent in ("a", "b"):
+            vals = [m[agent]["episode_return_mean"] for m in metrics if agent in m]
+            if vals:
+                first.setdefault(agent, float(np.mean(vals)))
+                last[agent] = float(np.mean(vals))
+    return {"first": first, "last": last, "sample_ms": sample_ms, "update_ms": update_ms,
+            "device": next(params["a"].parameters()).device.type,
+            "passed": all(last.get(a, 0.0) > max(first.get(a, 0.0) + 2.0, 12.0)
+                          for a in ("a", "b"))}
+
+
+def phase_rllib_offpolicy(card: str) -> dict:
+    """DQN (14 iterations), IMPALA and APPO (10), SAC (12) at their JAX
+    tests' settings on the port's CartPole-v1 on the card, each held to its
+    test's bar; then the two-agent runner (12 iterations)."""
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.rllib import APPOConfig, DQNConfig, IMPALAConfig, SACConfig
+
+    kernels.LAUNCHES.clear()
+    runners = dict(num_env_runners=2, num_envs_per_env_runner=4, rollout_fragment_length=64)
+    algos = {
+        "dqn": (lambda: DQNConfig().environment("CartPole-v1")
+                .env_runners(num_env_runners=1, num_envs_per_env_runner=8,
+                             rollout_fragment_length=128)
+                .training(lr=2e-3, batch_size=128, train_batches_per_iter=64,
+                          target_update_freq=100, epsilon_decay_iters=6,
+                          learning_starts=500, prioritized=True, hidden=64), 14, 8 * 128,
+                lambda first, best: best > 60.0),
+        "impala": (lambda: IMPALAConfig().environment("CartPole-v1").env_runners(**runners)
+                   .training(lr=1e-3, batches_per_iter=8, entropy_coeff=0.01), 10, 4 * 64,
+                   None),
+        "appo": (lambda: APPOConfig().environment("CartPole-v1").env_runners(**runners)
+                 .training(clip=0.3, lr=1e-3, batches_per_iter=8, entropy_coeff=0.01), 10,
+                 4 * 64, None),
+        "sac": (lambda: SACConfig().environment("CartPole-v1").env_runners(**runners)
+                .training(lr=2e-3, batch_size=128, learning_starts=400,
+                          train_batches_per_iter=24, tau=0.02, target_entropy=0.25,
+                          initial_alpha=0.3), 12, 4 * 64, None),
+    }
+    out, failed = {}, []
+    for name, (config, iters, steps, bar) in algos.items():
+        run = rl_curve(config().build(), iters, steps)
+        bar = bar or (lambda first, best: best > max(60.0, 1.5 * first))
+        run["passed"] = run["first"] is not None and bar(run["first"], run["best"])
+        out[name] = run
+        if not run["passed"] or run["device"] != "cuda":
+            failed.append(name)
+    out["multi_agent"] = rl_multi_agent()
+    if not out["multi_agent"]["passed"] or out["multi_agent"]["device"] != "cuda":
+        failed.append("multi_agent")
+    flash = dict(kernels.launches())
+    emit({"phase": "rllib_offpolicy", **out, "flash_launches": flash, "card": card})
+    if failed or sum(flash.values()):
+        raise AssertionError(f"rllib_offpolicy: {failed} missed their bars; flash {flash}")
+    return flash
+
+
+def phase_rllib_offline(card: str) -> dict:
+    """collect_rollouts of a fixed policy on the card -> OfflineData -> BC
+    (agreement with the expert's greedy actions > 0.8) and CQL on
+    action-0-only data (Q prefers the logged action on > 0.9 of states),
+    as test_offline_roundtrip_and_bc_clones_expert and
+    test_cql_penalty_suppresses_unlogged_actions."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.rllib import BCConfig, CQLConfig, OfflineData, collect_rollouts, core
+    from ray_tpu_torch.rllib import write_rollouts
+
+    kernels.LAUNCHES.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "exp", "rollouts.jsonl")
+        expert = core.policy_init(core.seeded(7, "cpu"), 4, 2, hidden=32)
+        t0 = time.perf_counter()
+        n = collect_rollouts("CartPole-v1", path, num_steps=384, num_envs=2, seed=0,
+                             policy_params=expert, hidden=32)
+        collect_s = time.perf_counter() - t0
+        data = OfflineData(path)
+        bc = BCConfig().offline_data(path).training(lr=3e-3, batch_size=128,
+                                                    updates_per_iter=80, hidden=32).build()
+        bc_ms = []
+        for _ in range(4):
+            result = bc.train()
+            bc_ms.append(result["time_this_iter_s"] * 1e3)
+        obs = torch.as_tensor(data.table["obs"][:256], dtype=torch.float32, device="cuda")
+        with torch.no_grad():
+            agree = float((core.policy_logits(expert, obs).argmax(-1)
+                           == core.policy_logits(bc.get_weights(), obs).argmax(-1)).float().mean())
+        rng = np.random.default_rng(0)
+        cobs = rng.normal(size=(512, 4)).astype(np.float32)
+        write_rollouts(os.path.join(tmp, "d.jsonl"), [{
+            "obs": cobs, "actions": np.zeros(512, np.int64), "rewards": np.ones(512, np.float32),
+            "dones": np.zeros(512, np.float32),
+            "next_obs": rng.normal(size=(512, 4)).astype(np.float32)}])
+        cql = CQLConfig().offline_data(os.path.join(tmp, "d.jsonl")).training(
+            lr=3e-3, cql_alpha=5.0, batch_size=128, updates_per_iter=60, hidden=32,
+            n_actions=2).build()
+        cql_ms = []
+        for _ in range(3):
+            cresult = cql.train()
+            cql_ms.append(cresult["time_this_iter_s"] * 1e3)
+        with torch.no_grad():
+            q1 = cql.get_weights()["q1"](torch.as_tensor(cobs[:128], device="cuda")).cpu().numpy()
+        prefer = float((q1[:, 0] > q1[:, 1]).mean())
+    flash = dict(kernels.launches())
+    emit({"phase": "rllib_offline", "transitions": n, "collect_s": collect_s,
+          "bc_loss": result["loss"], "bc_agreement": agree, "bc_iter_ms": bc_ms,
+          "bc_update_ms": [t / 80 for t in bc_ms], "cql_penalty": cresult["cql_penalty"],
+          "cql_prefers_logged": prefer, "cql_iter_ms": cql_ms,
+          "cql_update_ms": [t / 60 for t in cql_ms],
+          "device": next(bc.get_weights().parameters()).device.type,
+          "flash_launches": flash, "card": card})
+    if not (n >= 384 and result["loss"] < 0.6 and agree > 0.8):
+        raise AssertionError(f"BC: {n} transitions, loss {result['loss']}, agreement {agree}")
+    if not (cresult["cql_penalty"] < 0.35 and prefer > 0.9):
+        raise AssertionError(f"CQL: penalty {cresult['cql_penalty']}, prefers {prefer}")
+    if sum(flash.values()):
+        raise AssertionError(f"rllib_offline launched flash kernels: {flash}")
+    return flash
+
+
+RL_LEARNER = {"obs_dim": 4, "n_actions": 2, "hidden": 64, "lr": 1e-3, "epochs": 4,
+              "minibatches": 4, "seed": SEED + 22, "collective_backend": "gloo"}
+
+
+def _rl_learner_rollout():
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 23)
+    T, N = 128, 4
+    return {"obs": rng.normal(size=(T, N, 4)).astype(np.float32),
+            "actions": rng.integers(0, 2, (T, N)).astype(np.int32),
+            "logp": np.full((T, N), np.log(0.5), np.float32),
+            "values": rng.normal(size=(T, N)).astype(np.float32),
+            "rewards": np.ones((T, N), np.float32), "dones": rng.random((T, N)) < 0.05,
+            "last_value": np.zeros(N, np.float32)}
+
+
+def _rl_learner_state(ln) -> dict:
+    out = {}
+    for name, p in ln.module.named_parameters():
+        st = ln.opt.state[p]
+        out[f"param/{name}"] = p.detach().cpu().numpy()
+        out[f"exp_avg/{name}"] = st["exp_avg"].cpu().numpy()
+        out[f"exp_avg_sq/{name}"] = st["exp_avg_sq"].cpu().numpy()
+        out[f"step/{name}"] = st["step"].cpu().numpy()
+    return out
+
+
+def rl_learner_rank(rank: int, work: str) -> None:
+    """One of the rllib_learners phase's two ranks (run by
+    ``python -c "import chip_smoke; chip_smoke.rl_learner_rank(r, dir)"``):
+    a Learner on the card in a gloo group of 2; rank 0 updates on the
+    rollout, rank 1 on an empty shard; writes its state to
+    ``<work>/out_<rank>.npz``."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import Learner
+
+    _no_tf32()
+    config = dict(RL_LEARNER, device="cuda", init_method=f"file://{work}/rdzv")
+    ln = Learner(rank, 2, config, group_name="rl_learners")
+    result = ln.update([_rl_learner_rollout()] if rank == 0 else [])
+    np.savez(os.path.join(work, f"out_{rank}.npz"), samples=result["samples"],
+             device=next(ln.module.parameters()).device.type, **_rl_learner_state(ln))
+
+
+def phase_rllib_learners(card: str) -> None:
+    """Two Learner ranks in two processes sharing the card over gloo (NCCL
+    refuses two ranks on one card); rank 1 has an empty shard. After the
+    sync both hold equal params and Adam moments, equal to the mean of one
+    local update and the initial state computed here (1e-6), and their
+    step counts differ (16 and 0)."""
+    import tempfile
+
+    import numpy as np
+
+    from ray_tpu_torch.rllib import Learner
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.rl_learner_rank({r}, {work!r})"],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=240)[0].decode(errors="replace")[-3000:]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        seconds = time.perf_counter() - t0
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(f"rllib_learners ranks failed: {logs}")
+        outs = [dict(np.load(os.path.join(work, f"out_{r}.npz"))) for r in range(2)]
+    config = dict(RL_LEARNER, device="cuda")
+    idle, moved = Learner(0, 1, config), Learner(0, 1, config)
+    moved.update([_rl_learner_rollout()])
+    want0, want1 = _rl_learner_state(idle), _rl_learner_state(moved)
+    unequal, worst, steps = [], 0.0, {}
+    for k in want0:
+        kind = k.split("/")[0]
+        if kind == "step":
+            steps[k] = (float(outs[0][k]), float(outs[1][k]))
+            continue
+        if not np.array_equal(outs[0][k], outs[1][k]):
+            unequal.append(k)
+        worst = max(worst, float(np.abs(outs[0][k] - (want0[k] + want1[k]) / 2).max()))
+    emit({"phase": "rllib_learners", "ranks": 2, "backend": "gloo",
+          "samples": [int(o["samples"]) for o in outs], "devices": [str(o["device"]) for o in outs],
+          "unequal_leaves": unequal, "max_abs_diff_from_mean": worst, "tol": 1e-6,
+          "steps": sorted(set(steps.values())), "seconds": seconds, "card": card})
+    if unequal or not worst <= 1e-6:
+        raise AssertionError(f"learner sync: unequal {unequal}, diff from the mean {worst}")
+    if set(steps.values()) != {(16.0, 0.0)} or any(str(o["device"]) != "cuda" for o in outs):
+        raise AssertionError(f"learner steps {set(steps.values())}, devices "
+                             f"{[o['device'] for o in outs]}")
+
+
 def main() -> int:
     import torch
 
@@ -2272,6 +2873,14 @@ def main() -> int:
     phase_trainer_checkpoint(card)
     phase_trainer_dp2(card)
     phase_dryrun(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_rllib_parity(card)
+    rl_launches = collections.Counter()
+    rl_launches.update(phase_rllib_ppo(card))
+    rl_launches.update(phase_rllib_offpolicy(card))
+    rl_launches.update(phase_rllib_offline(card))
+    phase_rllib_learners(card)
 
     replaces = {"flash_attention_fwd": "ray_tpu/ops/flash_attention.py:49",
                 "flash_attention_bwd_dq": "ray_tpu/ops/flash_attention.py:144",
@@ -2293,7 +2902,8 @@ def main() -> int:
                    key.split(":")[1]: c for key, c in moe_fwd_launches.items()
                    if key.startswith(name + ":")},
                "moe_train_launches": moe_train_launches[name],
-               "moe_train_launches_per_step": moe_step_launches[name], **k[name]}
+               "moe_train_launches_per_step": moe_step_launches[name],
+               "rllib_launches": rl_launches[name], **k[name]}
         if name != "flash_attention_fwd":
             row["plain_and_library_cover"] = "dq+dkv"
         rows.append(row)

@@ -16,6 +16,7 @@ import torch
 
 from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.ops.basic import matmul, rms_norm, rope, rope_freqs, swiglu
+from ray_tpu_torch.utils.device import resolve_device
 
 _NEG_BIG = -1e30
 
@@ -156,8 +157,11 @@ def generate_tokens(params, tokens, pad_lens, cfg: LlamaConfig,
     return torch.stack(out, dim=1)
 
 
-def pad_prompts(prompts: list[list[int]], pad_id: int = 0, device="cpu"):
-    """Left-pad ragged prompts to one batch: (tokens [B, Tp], pad_lens [B])."""
+def pad_prompts(prompts: list[list[int]], pad_id: int = 0, device=None):
+    """Left-pad ragged prompts to one batch: (tokens [B, Tp], pad_lens [B])
+    on ``device`` (``None``: the card, as JAX's lands on the default
+    device)."""
+    device = resolve_device(device)
     Tp = max(len(p) for p in prompts)
     B = len(prompts)
     tokens = np.full((B, Tp), pad_id, dtype=np.int64)

@@ -49,3 +49,18 @@ def test_sampling_is_seeded_and_in_vocab(models):
     b = generate(params, cfg, [[1, 2, 3]], max_new_tokens=8, temperature=1.0, seed=1)
     assert a == b
     assert all(0 <= t < cfg.vocab_size for t in a[0])
+
+
+def test_pad_prompts_matches_jax_and_defaults_to_the_card(monkeypatch):
+    from ray_tpu.llm.generation import pad_prompts as jpad
+
+    from ray_tpu_torch.llm.generation import pad_prompts
+
+    tokens, pad_lens = pad_prompts(PROMPTS, pad_id=1, device="cpu")
+    jtokens, jpad_lens = jpad(PROMPTS, pad_id=1)
+    assert tokens.device.type == "cpu"
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(jtokens))
+    np.testing.assert_array_equal(pad_lens.numpy(), np.asarray(jpad_lens))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pad_prompts(PROMPTS)

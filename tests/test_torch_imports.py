@@ -21,7 +21,14 @@ SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
                "ray_tpu_torch.accelerators", "ray_tpu_torch.accelerators.gpu",
                "ray_tpu_torch.collective", "ray_tpu_torch.collective.torch_group",
                "ray_tpu_torch.train", "ray_tpu_torch.train.worker",
-               "ray_tpu_torch.train.trainer"]
+               "ray_tpu_torch.train.trainer",
+               "ray_tpu_torch.rllib", "ray_tpu_torch.rllib.envs", "ray_tpu_torch.rllib.core",
+               "ray_tpu_torch.rllib.connectors", "ray_tpu_torch.rllib.replay_buffer",
+               "ray_tpu_torch.rllib.env_runner", "ray_tpu_torch.rllib.learner",
+               "ray_tpu_torch.rllib.ppo", "ray_tpu_torch.rllib.dqn",
+               "ray_tpu_torch.rllib.impala", "ray_tpu_torch.rllib.appo",
+               "ray_tpu_torch.rllib.sac", "ray_tpu_torch.rllib.multi_agent",
+               "ray_tpu_torch.rllib.offline"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
