@@ -95,27 +95,40 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               ulysses_attention, pipeline_apply, moe_ffn (ep=1) and
               llama_pp_loss (pp=1) each equal their local counterpart on the
               card within 2e-5 at float32; the group is destroyed.
-9. trainer  — TorchTrainer(num_workers=1), NCCL at world size 1: the train
+9. runtime  — the port's task/actor runtime (ray_tpu_torch.init with an
+              8 GiB shm arena, idle leases returned after 1 s):
+              cluster_resources() reports GPU 1.0; a 1 GiB bf16 tensor on the
+              card and a 1 GiB float32 CPU tensor each go through put/get,
+              into a num_gpus=1 actor as a task argument (restored on its
+              card, or on its host) and back out of it as a return, bytes
+              equal each time, with put, get, argument and round-trip GB/s
+              (host clock, twice each) and the actor's start and first-tensor
+              seconds; then a num_gpus=1 task sees CUDA_VISIBLE_DEVICES "0"
+              and the card's name; no worker loads jax or ray_tpu. The
+              runtime stays up for phases 10-13, and is shut down after them.
+10. trainer — TorchTrainer(num_workers=1), NCCL at world size 1: the train
               phase's step (8 layers, B=2, T=2048, bf16, remat, AdamW 1e-4)
-              in a worker process, params placed by shard_pytree on the
+              in a TrainWorker actor of the runtime, its card pinned by the
+              placement group's lease, params placed by shard_pytree on the
               one-rank mesh; 3 warm-up and TRAIN_STEPS (20) timed steps,
-              8/8/8 launches each read in the worker, the step-1 loss within
-              3e-2 of the train phase's, the loss finite and falling; the
-              seconds from fit() to the first report.
-10. trainer_checkpoint — 2 layers at full width: fit 1 runs 4 steps and
+              8/8/8 launches each read in the actor, its 21 losses equal to
+              the train phase's (within 1e-6 relative; printed whether
+              exactly), the loss finite and falling; the seconds from fit()
+              to the first report.
+11. trainer_checkpoint — 2 layers at full width: fit 1 runs 4 steps and
               saves params and AdamW state at step 2 (Checkpoint.
               from_state_dict), fit 2 resumes from it and runs steps 3-4,
               whose losses must equal fit 1's within 1e-6 relative (printed:
               whether exactly); the bytes and the save and load GB/s.
-11. trainer_dp2 — two workers sharing the card (GPU 0.5 each, gloo) take one
-              float32 step at MeshSpec(dp=2) (d_model 1024, 2 layers, B=4,
+12. trainer_dp2 — two worker actors sharing the card (GPU 0.5 each, gloo)
+              take one float32 step at MeshSpec(dp=2) (d_model 1024, 2 layers, B=4,
               T=2048, so the float32 kernels run in both); loss within 1e-5
               (relative) and every updated leaf within 1e-4 of the one-
               process step on the whole batch, and a collective.allreduce of
               numpy giving the sum on both ranks.
-12. dryrun  — ray_tpu_torch.entry.dryrun_multichip(1): NCCL at world size 1,
+13. dryrun  — ray_tpu_torch.entry.dryrun_multichip(1): NCCL at world size 1,
               then the trainer arm's two workers.
-13. rllib_parity — ray_tpu_torch.rllib on the card, float32, TF32 off: one
+14. rllib_parity — ray_tpu_torch.rllib on the card, float32, TF32 off: one
               update of each of PPO (minibatches 1), IMPALA, APPO, DQN, SAC,
               BC and CQL from weights drawn once and a fixed batch, against
               the same update on the CPU, each leaf's max error over its
@@ -125,17 +138,17 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               gradients into whole steps); ms per float32 update on the card
               and on the host CPU. The port's CartPole-v1, 2000 random-action
               steps of 8 envs, twice from one seed, must give equal bytes.
-14. rllib_ppo — PPO on the port's CartPole-v1 at test_ppo_learns_cartpole's
+15. rllib_ppo — PPO on the port's CartPole-v1 at test_ppo_learns_cartpole's
               settings (2 runners x 4 envs x 128 steps, lr 1e-3, 4 epochs x
               4 minibatches, hidden 64), 8 iterations: best mean return >
               max(60, 1.5 x first), params on cuda; per iteration sample ms,
               update ms and env steps/s.
-15. rllib_offpolicy — DQN, IMPALA, APPO and SAC at their JAX tests'
+16. rllib_offpolicy — DQN, IMPALA, APPO and SAC at their JAX tests'
               settings and iteration counts, each held to its test's bar,
               and the two-agent runner (TwoAgentTag) with per-policy PPO.
-16. rllib_offline — collect_rollouts -> OfflineData -> BC (agreement with
+17. rllib_offline — collect_rollouts -> OfflineData -> BC (agreement with
               the expert > 0.8) and CQL (prefers the logged action on > 0.9).
-17. rllib_learners — two Learner ranks in two processes sharing the card
+18. rllib_learners — two Learner ranks in two processes sharing the card
               over gloo, one with an empty shard: equal params and Adam
               moments after the sync (the mean of the update and the initial
               state), step counts 16 and 0.
@@ -1915,6 +1928,148 @@ DP2_CFG = dict(vocab_size=32000, d_model=1024, n_layers=2, n_heads=8, n_kv_heads
                max_seq_len=2048, dtype="float32")
 
 
+# ------------------------------------------------------------------ runtime
+RUNTIME_TENSOR_BYTES = 1 << 30  # one tensor through put/get, an argument and a return
+RUNTIME_STORE_BYTES = 8 << 30  # the shm arena: a few such objects alive at once
+RUNTIME_REPS = 2  # each transfer twice: the first touches a cold arena
+
+
+def _foreign_modules() -> list:
+    """The JAX package's modules (and jax's) loaded in this process."""
+    return sorted({m.split(".")[0] for m in sys.modules
+                   if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu")})
+
+
+def _runtime_task_probe():
+    """A num_gpus=1 task's view: its pinned card, and what it imported."""
+    import torch
+
+    return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+            "foreign": _foreign_modules()}
+
+
+class RuntimeEcho:
+    """A GPU actor of the port's runtime: describes or returns what it got."""
+
+    def describe(self, x):
+        import torch
+
+        torch.cuda.synchronize()
+        return {"device": str(x.device), "dtype": str(x.dtype), "shape": list(x.shape)}
+
+    def echo(self, x):
+        return x
+
+    def modules(self):
+        return _foreign_modules()
+
+
+def _same_bytes(a, b) -> bool:
+    import torch
+
+    bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(bits), b.to(a.device).view(bits))
+
+
+def _runtime_transfers(rt, actor, x, want_device: str) -> dict:
+    """put, get, a task argument (into the actor, which synchronises and
+    describes it) and a round trip (the actor returns it), each timed
+    RUNTIME_REPS times on the host clock; the bytes checked equal."""
+    import torch
+
+    nbytes = x.numel() * x.element_size()
+    sync = torch.cuda.synchronize
+    out = {"put_s": [], "get_s": [], "arg_s": [], "round_trip_s": []}
+    for _ in range(RUNTIME_REPS):
+        sync()
+        t0 = time.perf_counter()
+        ref = rt.put(x)
+        out["put_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        y = rt.get(ref)
+        sync()
+        out["get_s"].append(time.perf_counter() - t0)
+        if not _same_bytes(x, y) or str(y.device) != str(x.device):
+            raise AssertionError(f"get of a {x.dtype} {x.device} tensor: {y.device}, bytes differ")
+        del ref, y
+        t0 = time.perf_counter()
+        info = rt.get(actor.describe.remote(x))
+        out["arg_s"].append(time.perf_counter() - t0)
+        if info != {"device": want_device, "dtype": str(x.dtype), "shape": list(x.shape)}:
+            raise AssertionError(f"the actor got {info}")
+        t0 = time.perf_counter()
+        z = rt.get(actor.echo.remote(x))
+        sync()
+        out["round_trip_s"].append(time.perf_counter() - t0)
+        if not _same_bytes(x, z) or str(z.device) != str(x.device):
+            raise AssertionError(f"round trip of a {x.dtype} {x.device} tensor: bytes differ")
+        del z
+        gc.collect()
+    rates = {k.replace("_s", "_gb_per_s"): [nbytes / t / 1e9 for t in v] for k, v in out.items()}
+    # the round trip moves the bytes twice, into the actor and back
+    rates["round_trip_gb_per_s"] = [2 * r for r in rates["round_trip_gb_per_s"]]
+    return {"bytes": nbytes, "dtype": str(x.dtype), "device": str(x.device), **out, **rates}
+
+
+def phase_runtime(card: str) -> None:
+    """The port's task/actor runtime on the card's host: init reports the
+    card, 1 GiB tensors (bf16 on the card, float32 on the host) go into a
+    GPU actor and back with their bytes equal, a num_gpus=1 task is pinned
+    to the card, and no worker loads jax or ray_tpu. The runtime stays up
+    for the trainer phases."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import config
+
+    # the one card goes from the actor to the task to the trainer's
+    # placement group: a task's idle lease would hold it the default 10 s
+    config.set_config(dataclasses.replace(config.get_config(), worker_lease_timeout_s=1.0))
+    t0 = time.perf_counter()
+    rt.init(object_store_memory=RUNTIME_STORE_BYTES)
+    init_s = time.perf_counter() - t0
+    resources = rt.cluster_resources()
+    if resources.get("GPU") != 1.0:
+        raise AssertionError(f"cluster_resources() {resources}: want GPU 1.0")
+    # an actor's start (a worker's spawn, its runtime's connect) apart from
+    # its first tensors (the torch import and the CUDA context)
+    t0 = time.perf_counter()
+    actor = rt.remote(num_gpus=1)(RuntimeEcho).remote()
+    foreign = rt.get(actor.modules.remote(), timeout=300)
+    actor_start_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rt.get([actor.describe.remote(torch.zeros(1, device=d)) for d in ("cuda", "cpu")],
+           timeout=300)
+    actor_first_tensors_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    n16, n32 = RUNTIME_TENSOR_BYTES // 2, RUNTIME_TENSOR_BYTES // 4
+    on_card = torch.randn(n16 // 4096, 4096, generator=g, device="cuda").to(torch.bfloat16)
+    cuda = _runtime_transfers(rt, actor, on_card, "cuda:0")
+    del on_card
+    host = torch.randn(n32 // 4096, 4096, generator=g, device="cuda").cpu()
+    cpu = _runtime_transfers(rt, actor, host, "cpu")
+    del host
+    foreign += rt.get(actor.modules.remote(), timeout=60)
+    rt.kill(actor)
+    # the task waits for the actor's worker to exit and give the card back
+    t0 = time.perf_counter()
+    task = rt.get(rt.remote(num_gpus=1)(_runtime_task_probe).remote(), timeout=300)
+    task_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "runtime", "init_s": init_s, "cluster_resources": resources,
+          "actor_start_s": actor_start_s, "actor_first_tensors_s": actor_first_tensors_s,
+          "gpu_task": task, "gpu_task_s": task_s, "worker_foreign_modules": foreign,
+          "store_bytes": RUNTIME_STORE_BYTES, "cuda_tensor": cuda, "cpu_tensor": cpu,
+          "card": card})
+    if task["visible"] != "0" or task["name"] != torch.cuda.get_device_name(0) or task["foreign"]:
+        raise AssertionError(f"a num_gpus=1 task saw {task}")
+    if foreign:
+        raise AssertionError(f"a worker loaded {foreign}")
+
+
 def _no_tf32():
     import torch
 
@@ -2868,11 +3023,15 @@ def main() -> int:
     phase_parallel(card)
     gc.collect()
     torch.cuda.empty_cache()
-    # the trainer's worker processes take the card from here
+    phase_runtime(card)
+    # the trainer's worker actors take the card from here
     trainer_launches = phase_trainer(card, train_losses)
     phase_trainer_checkpoint(card)
     phase_trainer_dp2(card)
     phase_dryrun(card)
+    import ray_tpu_torch
+
+    ray_tpu_torch.shutdown()  # every worker and the shm arena go with it
     gc.collect()
     torch.cuda.empty_cache()
     phase_rllib_parity(card)

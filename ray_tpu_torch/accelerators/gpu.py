@@ -59,11 +59,14 @@ class GPUAcceleratorManager:
 
     @staticmethod
     def get_current_node_accelerator_type() -> str | None:
-        """The card's model, e.g. "H100"; ``None`` without a card."""
+        """The card's model, e.g. "H100"; ``None`` without a card, or where
+        this process's torch cannot name it (no CUDA)."""
         if GPUAcceleratorManager.get_current_node_num_accelerators() == 0:
             return None
         import torch
 
+        if not torch.cuda.is_available():
+            return None
         match = _NAME_PATTERN.match(torch.cuda.get_device_name(0))
         return match.group(1) if match else None
 

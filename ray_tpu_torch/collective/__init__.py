@@ -10,6 +10,7 @@ from ray_tpu_torch.collective.collective import (  # noqa: F401
     allreduce,
     barrier,
     broadcast,
+    create_collective_group,
     destroy_collective_group,
     get_group_handle,
     init_collective_group,

@@ -2,7 +2,7 @@
 
 Counterpart of ``ray_tpu/collective/collective.py``: the same names and
 signatures, each group a ``TorchCollectiveGroup``. ``create_collective_group``
-(which tells actors to join) is left out with the actor runtime.
+tells actors of the port's runtime to join.
 """
 
 from __future__ import annotations
@@ -59,6 +59,29 @@ def init_collective_group(
     Without a default process group, ``init_method`` (e.g.
     ``"file://<dir>/rdzv"``) starts one."""
     return _manager.create_group(backend, world_size, rank, group_name, init_method)
+
+
+def create_collective_group(
+    actors: list,
+    world_size: int,
+    ranks: list[int],
+    backend: str = Backend.GLOO,
+    group_name: str = "default",
+):
+    """Declarative variant (ref: collective.py:160): tell N actors to join.
+    Each actor's class defines ``_setup_collective_group(world_size, rank,
+    backend, group_name)``, which calls ``init_collective_group`` with its
+    rendezvous, as JAX's callers do. A handle refuses attributes that
+    start with "_", so the method is named to ``ActorMethod`` directly."""
+    import ray_tpu_torch
+    from ray_tpu_torch.core.ref import ActorMethod
+
+    refs = [
+        ActorMethod(actor, "_setup_collective_group").remote(world_size, rank, backend,
+                                                              group_name)
+        for actor, rank in zip(actors, ranks)
+    ]
+    ray_tpu_torch.get(refs)
 
 
 def get_group_handle(group_name: str = "default") -> Communicator:

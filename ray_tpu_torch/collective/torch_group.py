@@ -170,6 +170,25 @@ class TorchCollectiveGroup(Communicator):
         dist.recv(t, src, group=self._group)
         return t.cpu().numpy() if numpy else t
 
+    def sendrecv(self, value, src: int, dst: int):
+        """Collective point-to-point (``XlaCollectiveGroup.sendrecv``,
+        ``ray_tpu/collective/xla_group.py:260``): every rank calls it with a
+        value of one shape and dtype; ``dst`` gets ``src``'s value, every
+        other rank zeros (what JAX's ``ppermute`` leaves where nothing
+        arrives). ``src == dst`` gives each rank its own value back; at world
+        size 1 it raises ``RuntimeError``."""
+        if src == dst:
+            return value if isinstance(value, torch.Tensor) else np.asarray(value)
+        if self._world_size == 1:
+            raise RuntimeError("p2p needs world_size > 1")
+        t, back = self._stage(value)
+        if self._rank == src:
+            dist.send(t.contiguous(), self._global(dst), group=self._group)
+        elif self._rank == dst:
+            dist.recv(t, self._global(src), group=self._group)
+            return back(t)
+        return back(torch.zeros_like(t))
+
     def destroy(self) -> None:
         if self._group is not None:
             dist.destroy_process_group(self._group)

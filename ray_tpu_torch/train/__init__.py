@@ -1,8 +1,8 @@
-"""Distributed training: TorchTrainer over a group of worker processes.
+"""Distributed training: TorchTrainer over a group of worker actors.
 
-Counterpart of ``ray_tpu/train``: a controller drives one process per
-rank, the ranks meet in one ``torch.distributed`` world, and the training
-step shards itself over the mesh (``models.llama.make_train_step`` with a
+Counterpart of ``ray_tpu/train``: a controller drives one actor of the
+port's runtime per rank, the ranks meet in one ``torch.distributed``
+world, and the training step shards itself over the mesh (``models.llama.make_train_step`` with a
 ``MeshSpec`` mesh; DDP/FSDP/TP are the mesh's dp/fsdp/tp axes and
 ``shard_pytree``'s placements, not wrapper modules).
 """

@@ -19,9 +19,9 @@ class ScalingConfig:
     num_workers: int = 1
     #: None: the card (raises without CUDA); False: the CPU
     use_gpu: bool | None = None
-    #: resources per worker process, e.g. {"GPU": 0.5} (two workers a card)
+    #: resources per worker actor, e.g. {"GPU": 0.5} (two workers a card)
     resources_per_worker: dict[str, float] | None = None
-    #: kept for the reference's shape; every worker runs on this host
+    #: the placement group's strategy
     placement_strategy: str = "PACK"
     #: per-worker collective backend: "nccl" on the cards, "gloo" otherwise
     collective_backend: str | None = None

@@ -1,59 +1,22 @@
 """Per-worker training session (counterpart of ``ray_tpu/train/session.py``:
 ``report``, ``get_checkpoint``, ``get_context`` live here).
 
-A worker process (``train/worker.py``) opens one session. Its reports leave
-the process on a ``Channel``: an append-only file of length-prefixed
-pickled frames that the controller (``TorchTrainer``) reads as they come.
-A frame is ``("report", metrics, checkpoint path or None)``,
-``("done", result)`` or ``("error", traceback text)``.
+A worker actor (``train/worker.py``'s ``TrainWorker``) opens one session.
+Its reports wait in the session's outbox, a queue of ``(metrics,
+checkpoint)`` pairs that the controller (``TorchTrainer``) drains through
+the actor's ``poll``, as JAX's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
-import pickle
-import struct
+import queue
 
 import torch
 
 from ray_tpu_torch.train.checkpoint import Checkpoint
 
-_LEN = struct.Struct("<Q")
 _session: "TrainSession | None" = None
-
-
-class Channel:
-    """Frames in one file: the worker appends, the controller reads."""
-
-    def __init__(self, path: str):
-        self.path = path
-        self._offset = 0
-
-    def put(self, frame) -> None:
-        data = pickle.dumps(frame, protocol=5)
-        with open(self.path, "ab") as f:
-            f.write(_LEN.pack(len(data)) + data)
-            f.flush()
-            os.fsync(f.fileno())
-
-    def read(self) -> list:
-        """The frames written since the last read; a frame still being
-        written waits for the next read."""
-        if not os.path.exists(self.path):
-            return []
-        with open(self.path, "rb") as f:
-            f.seek(self._offset)
-            buf = f.read()
-        out, pos = [], 0
-        while pos + _LEN.size <= len(buf):
-            (n,) = _LEN.unpack_from(buf, pos)
-            if pos + _LEN.size + n > len(buf):
-                break
-            out.append(pickle.loads(buf[pos + _LEN.size:pos + _LEN.size + n]))
-            pos += _LEN.size + n
-        self._offset += pos
-        return out
 
 
 @dataclasses.dataclass
@@ -76,24 +39,25 @@ class TrainContext:
 
 class TrainSession:
     def __init__(self, context: TrainContext, checkpoint: Checkpoint | None,
-                 channel: Channel, staging_dir: str, device: torch.device):
+                 staging_dir: str, device: torch.device):
         self.context = context
         self.starting_checkpoint = checkpoint
-        self.channel = channel
         #: where ``Checkpoint.from_dict`` writes inside this worker
         self.staging_dir = staging_dir
         self.device = device
         self.reports: list[dict] = []
+        #: (metrics, checkpoint) pairs drained by the controller's poll
+        self.outbox: queue.Queue = queue.Queue()
 
     def report(self, metrics: dict, checkpoint: Checkpoint | None = None):
         self.reports.append(metrics)
-        self.channel.put(("report", dict(metrics), checkpoint.path if checkpoint else None))
+        self.outbox.put((dict(metrics), checkpoint))
 
 
-def init_session(context: TrainContext, checkpoint: Checkpoint | None, channel: Channel,
-                 staging_dir: str, device: torch.device) -> TrainSession:
+def init_session(context: TrainContext, checkpoint: Checkpoint | None, staging_dir: str,
+                 device: torch.device) -> TrainSession:
     global _session
-    _session = TrainSession(context, checkpoint, channel, staging_dir, device)
+    _session = TrainSession(context, checkpoint, staging_dir, device)
     return _session
 
 

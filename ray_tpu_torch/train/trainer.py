@@ -1,47 +1,48 @@
-"""TorchTrainer: a controller and a group of worker processes.
+"""TorchTrainer: a controller and a group of worker actors.
 
 Counterpart of ``JaxTrainer`` (``ray_tpu/train/trainer.py``), with the same
-constructor, ``fit()``, ``Result`` and ``TrainingFailedError``, on a
-process launcher of the port's own instead of the actor runtime: the
-controller starts ``num_workers`` processes (``subprocess.Popen`` of
-``python -m ray_tpu_torch.train.worker``; no fork, no actors), which meet in
-one ``torch.distributed`` world through a file store in the run's
-directory (NCCL on the cards, gloo otherwise) and each run
-``train_loop_per_worker(config)``. The controller reads their reports as
+constructor, ``fit()``, ``Result`` and ``TrainingFailedError``, on the port's
+task/actor runtime (``ray_tpu_torch.core``; ``fit`` calls
+``ray_tpu_torch.init()`` on first use). The controller creates one
+``TrainWorker`` actor (``train/worker.py``) per rank in a placement group
+with a bundle per worker (``{"CPU": 1, "GPU": share}``); the ranks meet in
+one ``torch.distributed`` world through a file store in the run's directory
+(NCCL on the cards, gloo otherwise) and each runs
+``train_loop_per_worker(config)``. The controller polls their reports as
 they come, registers rank 0's checkpoints with a ``CheckpointManager``
-(top-K retention), and on a worker's failure (an exception, or an exit
-code other than 0) kills the whole group and restarts it at the same size
-from the latest checkpoint, up to ``FailureConfig.max_failures`` times,
-with JAX's backoff. Every worker is killed on the way out.
+(top-K retention), and on a worker's failure (an exception, or an actor
+that died) kills the whole group and restarts it at the same size from the
+latest checkpoint, up to ``FailureConfig.max_failures`` times, with JAX's
+backoff. Every actor is killed and the placement group removed on the way
+out.
 
 The loop travels by name, so it must be importable: a module-level
 function (of a module, or of the script being run). A nested function or a
-lambda cannot travel: the port does not depend on cloudpickle to ship
-code by value.
+lambda is refused: the port does not depend on cloudpickle to ship code by
+value.
 """
 
 from __future__ import annotations
 
 import math
 import os
-import pickle
 import random
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
 from typing import Callable
 
+import ray_tpu_torch
 from ray_tpu_torch.accelerators import GPUAcceleratorManager
+from ray_tpu_torch.core.ref import ActorError, TaskError
 from ray_tpu_torch.train.checkpoint import Checkpoint, CheckpointManager
 from ray_tpu_torch.train.config import RunConfig, ScalingConfig
-from ray_tpu_torch.train.session import Channel
+from ray_tpu_torch.train.worker import TrainWorker
 
 #: Seconds one attempt may run before its workers are killed and it counts
 #: as failed (``None``: no limit). The tests set it, as a clock.
 ATTEMPT_TIMEOUT_S: float | None = None
-_PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 class TrainingFailedError(RuntimeError):
@@ -102,6 +103,9 @@ class TorchTrainer:
 
     # ------------------------------------------------------------------ fit
     def fit(self) -> Result:
+        gpu_ids = self._gpu_ids(self.scaling.num_workers)  # raises without CUDA
+        if not ray_tpu_torch.is_initialized():
+            ray_tpu_torch.init()
         name = self.run_config.name or f"train_{int(time.time())}"
         storage = (self.run_config.storage_path
                    or os.path.join(tempfile.gettempdir(), "ray_tpu_torch", name))
@@ -119,13 +123,14 @@ class TorchTrainer:
         try:
             while True:
                 try:
-                    metrics = self._run_attempt(name, attempt, run_dir, manager, history)
+                    metrics = self._run_attempt(name, attempt, run_dir, gpu_ids, manager,
+                                                history)
                     return Result(metrics, manager.latest(), history)
-                except TrainingFailedError as e:
+                except (ActorError, TaskError, TrainingFailedError) as e:
                     attempt += 1
                     if max_failures >= 0 and attempt > max_failures:
                         return Result(history[-1] if history else {}, manager.latest(),
-                                      history, error=e)
+                                      history, error=TrainingFailedError(str(e)))
                     # restart the whole group at the same size; the backoff
                     # widens with consecutive failures
                     time.sleep(min(5.0, 0.5 * (2 ** (attempt - 1))) * (0.5 + random.random()))
@@ -133,13 +138,17 @@ class TorchTrainer:
             shutil.rmtree(run_dir, ignore_errors=True)
 
     def _gpu_ids(self, n: int) -> list[list[str]] | None:
-        """The card ids each worker sees: whole cards, or shares of one."""
+        """The card each worker of a fractional share sets for itself;
+        ``None`` for CPU workers and for whole cards, which the runtime's
+        lease pins."""
         if not self.scaling.gpu():
             return None
         share = self.scaling.worker_resources()["GPU"]
         ok, why = GPUAcceleratorManager.validate_resource_request_quantity(share)
         if not ok:
             raise ValueError(why)
+        if share >= 1:
+            return None
         visible = GPUAcceleratorManager.get_current_process_visible_accelerator_ids()
         if visible is None:
             visible = [str(i) for i in range(GPUAcceleratorManager.get_current_node_num_accelerators())]
@@ -147,92 +156,92 @@ class TorchTrainer:
         if need > len(visible):
             raise RuntimeError(f"{n} workers of GPU={share} need {need} cards; "
                                f"{len(visible)} visible")
-        if share < 1:
-            return [[visible[int(i * share + 1e-9)]] for i in range(n)]
-        k = int(share)
-        return [visible[i * k:(i + 1) * k] for i in range(n)]
+        return [[visible[int(i * share + 1e-9)]] for i in range(n)]
 
-    def _run_attempt(self, name: str, attempt: int, run_dir: str,
+    def _run_attempt(self, name: str, attempt: int, run_dir: str, gpu_ids,
                      manager: CheckpointManager, history: list[dict]) -> dict:
-        n = self.scaling.num_workers
+        scaling = self.scaling
+        n = scaling.num_workers
         work = os.path.join(run_dir, f"attempt_{attempt}")
         staging = os.path.join(work, "staging")
         os.makedirs(staging)
-        gpu_ids = self._gpu_ids(n)
-        resume = manager.latest() or self.resume_from_checkpoint
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            [_PACKAGE_ROOT, *self._loop_path, *filter(None, [env.get("PYTHONPATH")])])
-        if n > 1 and "OMP_NUM_THREADS" not in env:
-            env["OMP_NUM_THREADS"] = "1"  # as torchrun does, not n x all the cores
-        procs, logs, channels = [], [], []
+        resources = scaling.worker_resources()
+        pg = ray_tpu_torch.placement_group([resources] * n, strategy=scaling.placement_strategy)
+        workers = []
         try:
+            if not pg.ready(timeout=60):
+                raise RuntimeError(f"a placement group of {n} x {resources} did not fit in "
+                                   f"{ray_tpu_torch.available_resources()}")
+            cls = ray_tpu_torch.remote(TrainWorker)
             for rank in range(n):
-                spec = {
-                    "rank": rank, "world_size": n, "trial_name": name,
-                    "group_name": f"{name}_g{attempt}", "backend": self.scaling.backend(),
-                    "init_method": f"file://{os.path.join(work, 'rdzv')}",
-                    "gpu_ids": gpu_ids[rank] if gpu_ids else None,
-                    "loop": self.train_loop, "sys_path": self._loop_path,
-                    "config": self.train_loop_config,
-                    "checkpoint": resume.path if resume else None,
-                    "channel": os.path.join(work, f"channel_{rank}"), "staging_dir": staging,
-                }
-                spec_path = os.path.join(work, f"spec_{rank}.pkl")
-                with open(spec_path, "wb") as f:
-                    pickle.dump(spec, f)
-                channels.append(Channel(spec["channel"]))
-                logs.append(open(os.path.join(work, f"worker_{rank}.log"), "wb"))
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-m", "ray_tpu_torch.train.worker", spec_path],
-                    env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
-            return self._poll_loop(procs, channels, manager, history, work)
+                workers.append(cls.options(
+                    num_cpus=resources.get("CPU", 1.0),
+                    resources={k: v for k, v in resources.items() if k != "CPU"},
+                    placement_group=pg, placement_group_bundle_index=rank,
+                    # poll() must be servable while run() blocks a thread
+                    max_concurrency=2,
+                ).remote(rank, n, name, scaling.backend(), f"{name}_g{attempt}"))
+            resume = manager.latest() or self.resume_from_checkpoint
+            spec = {"init_method": f"file://{os.path.join(work, 'rdzv')}",
+                    "use_gpu": scaling.gpu(), "sys_path": self._loop_path,
+                    "checkpoint": resume.path if resume else None, "staging_dir": staging}
+            ray_tpu_torch.get([w.setup.remote({**spec, "gpu_ids": gpu_ids[r] if gpu_ids else None})
+                               for r, w in enumerate(workers)], timeout=300)
+            run_refs = [w.run.remote(self.train_loop, self.train_loop_config) for w in workers]
+            return self._poll_loop(workers, run_refs, manager, history, work)
         finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-            for log in logs:
-                log.close()
+            for w in workers:
+                try:
+                    ray_tpu_torch.kill(w)
+                except Exception:  # noqa: BLE001 — teardown: the actor may be dead already
+                    pass
+            try:
+                ray_tpu_torch.remove_placement_group(pg)
+            except Exception:  # noqa: BLE001 — teardown: the group dies with the cluster
+                pass
 
-    def _poll_loop(self, procs, channels, manager: CheckpointManager,
+    def _poll_loop(self, workers, run_refs, manager: CheckpointManager,
                    history: list[dict], work: str) -> dict:
-        """Read the workers' frames until every worker is done (the last
-        metrics reported) or one fails (``TrainingFailedError``)."""
+        """Drain the workers' reports until every worker is done (the last
+        metrics reported) or one fails (``TrainingFailedError``, or the
+        ``ActorError`` of a worker that died)."""
         deadline = None if ATTEMPT_TIMEOUT_S is None else time.monotonic() + ATTEMPT_TIMEOUT_S
         last_metrics: dict = {}
-        done = [False] * len(procs)
+        pending = list(run_refs)
         while True:
-            # exit codes first: a worker that exited has written all its frames
-            codes = [p.poll() for p in procs]
-            for rank, channel in enumerate(channels):
-                for frame in channel.read():
-                    if frame[0] == "report":
-                        _, metrics, ckpt_path = frame
-                        metrics = {**metrics, "world_rank": rank}
-                        history.append(metrics)
-                        last_metrics = metrics
-                        if ckpt_path and rank == 0:
-                            manager.register(Checkpoint(ckpt_path), metrics,
-                                             move=ckpt_path.startswith(work))
-                        elif ckpt_path and ckpt_path.startswith(work):
-                            shutil.rmtree(ckpt_path, ignore_errors=True)
-                    elif frame[0] == "done":
-                        done[rank] = True
-                    else:
-                        raise TrainingFailedError(f"worker {rank}: {frame[1]}")
-            for rank, code in enumerate(codes):
-                if code is not None and (code != 0 or not done[rank]):
-                    raise TrainingFailedError(
-                        f"worker {rank} exited with code {code}:\n{_tail(work, rank)}")
-            if all(done) and all(c == 0 for c in codes):
+            # early run() failures (an import of the loop, say) come first
+            done_now, _ = ray_tpu_torch.wait(pending, num_returns=len(pending), timeout=0.01)
+            for r in ray_tpu_torch.get(done_now):
+                if not r.get("ok"):
+                    raise TrainingFailedError(r.get("error", "unknown"))
+            polls, died = [], None
+            for rank, ref in enumerate([w.poll.remote() for w in workers]):
+                try:
+                    polls.append(ray_tpu_torch.get(ref, timeout=60))
+                except ActorError as e:
+                    # the living ranks' reports (rank 0's checkpoints) are
+                    # registered first: the restart resumes from them
+                    polls.append({"reports": [], "done": False, "error": None})
+                    died = died or f"worker {rank} died: {e}"
+            for rank, poll in enumerate(polls):
+                for metrics, ckpt_path in poll["reports"]:
+                    metrics = {**metrics, "world_rank": rank}
+                    history.append(metrics)
+                    last_metrics = metrics
+                    if ckpt_path and rank == 0:
+                        manager.register(Checkpoint(ckpt_path), metrics,
+                                         move=ckpt_path.startswith(work))
+                    elif ckpt_path and ckpt_path.startswith(work):
+                        shutil.rmtree(ckpt_path, ignore_errors=True)
+                if poll["error"]:
+                    raise TrainingFailedError(f"worker {rank}: {poll['error']}")
+            if died:
+                raise TrainingFailedError(died)
+            if all(p["done"] for p in polls):
+                for r in ray_tpu_torch.get(pending, timeout=60):
+                    if not r.get("ok"):
+                        raise TrainingFailedError(r.get("error", "unknown"))
                 return last_metrics
             if deadline is not None and time.monotonic() > deadline:
                 raise TrainingFailedError(f"attempt timed out after {ATTEMPT_TIMEOUT_S} s")
             time.sleep(0.05)
-
-
-def _tail(work: str, rank: int, nbytes: int = 4000) -> str:
-    with open(os.path.join(work, f"worker_{rank}.log"), "rb") as f:
-        data = f.read()
-    return data[-nbytes:].decode(errors="replace")

@@ -4,7 +4,8 @@
 
 Not a test module. It joins the group through the file ``<dir>/rdzv`` by
 ``collective.init_collective_group(..., init_method=...)``, runs every
-``Communicator`` op on numpy arrays and on tensors, and writes
+``Communicator`` op (and the group's ``sendrecv``) on numpy arrays and on
+tensors, and writes
 ``<dir>/out_<rank>.npz``; ``tests/test_torch_collective.py`` checks them
 against numpy.
 """
@@ -51,6 +52,9 @@ def main() -> int:
         put("broadcast", collective.broadcast(wrap(x) if rank == 1 else None, 1, "g"))
         put("reduce", collective.reduce(wrap(x), 0, "g"))
         collective.barrier("g")
+        group = collective.get_group_handle("g")
+        put("sendrecv", group.sendrecv(wrap(x), 1, 0))
+        put("sendrecv_self", group.sendrecv(wrap(x), 1, 1))
         if rank == 0:
             collective.send(wrap(x), 1, "g")
             put("recv", collective.recv(1, "g"))

@@ -72,3 +72,12 @@ def flaky_loop(config):
 
 def always_fails(config):
     raise RuntimeError("nope")
+
+
+def actor_loop(config):
+    """Reports whether it runs inside an actor of the port's runtime."""
+    import ray_tpu_torch
+
+    actor_id = ray_tpu_torch.get_runtime_context().get_actor_id()
+    train.report({"in_actor": actor_id is not None, "pid": os.getpid(),
+                  "device": str(train.get_device())})

@@ -15,6 +15,7 @@ def h100x4(monkeypatch):
     """A host whose CUDA counts four H100s."""
     monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
     monkeypatch.delenv(gpu.NOSET_CUDA_VISIBLE_DEVICES_ENV, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "NVIDIA H100 80GB HBM3")
 
@@ -72,8 +73,21 @@ def test_quantity_validation(quantity, ok):
 
 
 def test_set_visible_ids(h100x4, monkeypatch):
+    # recorded, so the setter's write is undone after the test: a leaked
+    # CUDA_VISIBLE_DEVICES would make later runtimes in this process count cards
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
     M.set_current_process_visible_accelerator_ids(["2", "0"])
     assert M.get_current_process_visible_accelerator_ids() == ["2", "0"]
     monkeypatch.setenv(gpu.NOSET_CUDA_VISIBLE_DEVICES_ENV, "1")
     M.set_current_process_visible_accelerator_ids(["3"])  # left as it was
     assert M.get_current_process_visible_accelerator_ids() == ["2", "0"]
+
+
+def test_visible_cards_without_cuda_have_no_type(monkeypatch):
+    """Cards named by CUDA_VISIBLE_DEVICES count as resources even where
+    this process's torch has no CUDA to name them (no type marker, no
+    raise): a runtime's init on such a host still starts."""
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0,1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert M.get_current_node_accelerator_type() is None
+    assert M.get_current_node_resources() == {"GPU": 2.0}

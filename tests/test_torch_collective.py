@@ -64,6 +64,10 @@ def _expected(rank):
         "broadcast": x1,
         "reduce": x0 + x1 if rank == 0 else x1,
         "recv": np.arange(6).reshape(2, 3) if rank == 0 else x0,
+        # XlaCollectiveGroup.sendrecv: dst gets src's value, the others
+        # what ppermute leaves (zeros); src == dst keeps each rank's own
+        "sendrecv": x1 if rank == 0 else np.zeros_like(x1),
+        "sendrecv_self": x0 if rank == 0 else x1,
     }
 
 
@@ -97,8 +101,8 @@ def test_types_mirror_jax():
 
 
 def test_module_api_matches_jax():
-    """The same public names and signatures as ray_tpu.collective, but
-    create_collective_group (actor handles), which rides on the runtime."""
+    """The same public names and signatures as ray_tpu.collective,
+    create_collective_group (over the port's actors) among them."""
     import inspect
 
     import ray_tpu.collective as jc
@@ -106,11 +110,30 @@ def test_module_api_matches_jax():
     import ray_tpu_torch.collective as tc
 
     names = [n for n in dir(jc) if not n.startswith("_") and callable(getattr(jc, n))
-             and n not in ("ReduceOp", "create_collective_group")]
+             and n != "ReduceOp"]
     for n in names:
         want = inspect.signature(getattr(jc, n)).parameters
         got = inspect.signature(getattr(tc, n)).parameters
         # the same parameters in order (init_collective_group adds init_method)
         assert list(got)[:len(want)] == list(want), n
+    assert "create_collective_group" in names
     with pytest.raises(ValueError, match="not initialized"):
         tc.allreduce(np.zeros(2), group_name="nobody")
+
+
+def test_sendrecv_needs_two_ranks():
+    """XlaCollectiveGroup.sendrecv's contract at world size 1: src == dst
+    gives the value back, any other pair raises RuntimeError (checked
+    before any process group is touched, so no group is joined here)."""
+    import torch
+
+    from ray_tpu_torch.collective.torch_group import TorchCollectiveGroup
+
+    group = object.__new__(TorchCollectiveGroup)
+    group._world_size, group._rank = 1, 0
+    x = np.arange(3.0)
+    np.testing.assert_array_equal(group.sendrecv(x, 0, 0), x)
+    t = torch.arange(3.0)
+    assert group.sendrecv(t, 0, 0) is t
+    with pytest.raises(RuntimeError, match="world_size > 1"):
+        group.sendrecv(x, 0, 1)

@@ -2,6 +2,7 @@
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -28,7 +29,24 @@ SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
                "ray_tpu_torch.rllib.ppo", "ray_tpu_torch.rllib.dqn",
                "ray_tpu_torch.rllib.impala", "ray_tpu_torch.rllib.appo",
                "ray_tpu_torch.rllib.sac", "ray_tpu_torch.rllib.multi_agent",
-               "ray_tpu_torch.rllib.offline"]
+               "ray_tpu_torch.rllib.offline",
+               "ray_tpu_torch.core", "ray_tpu_torch.core.api", "ray_tpu_torch.core.worker",
+               "ray_tpu_torch.core.raylet", "ray_tpu_torch.core.gcs",
+               "ray_tpu_torch.core.core_client", "ray_tpu_torch.core.cluster",
+               "ray_tpu_torch.core.object_store", "ray_tpu_torch.core.ref",
+               "ray_tpu_torch.core.policy", "ray_tpu_torch.core.tiering",
+               "ray_tpu_torch.core.memory_monitor", "ray_tpu_torch.core.cgroup",
+               "ray_tpu_torch.core.gcs_store", "ray_tpu_torch.core.metrics_store",
+               "ray_tpu_torch.core.fastpath", "ray_tpu_torch.core.tunnel",
+               "ray_tpu_torch._native", "ray_tpu_torch._version", "ray_tpu_torch.config",
+               "ray_tpu_torch.runtime_env", "ray_tpu_torch.devtools",
+               "ray_tpu_torch.devtools.chaos", "ray_tpu_torch.devtools.chaos.controller",
+               "ray_tpu_torch.devtools.chaos.plan", "ray_tpu_torch.util",
+               "ray_tpu_torch.util.scheduling_strategies", "ray_tpu_torch.util.actor_pool",
+               "ray_tpu_torch.util.queue", "ray_tpu_torch.utils.ids", "ray_tpu_torch.utils.aio",
+               "ray_tpu_torch.utils.rpc", "ray_tpu_torch.utils.schema",
+               "ray_tpu_torch.utils.metrics", "ray_tpu_torch.utils.recorder",
+               "ray_tpu_torch.utils.tracing"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
@@ -68,6 +86,11 @@ def test_source_scan_finds_no_jax_or_ray_tpu_import():
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
                 names = [node.module or ""]
+            elif isinstance(node, ast.Constant) and isinstance(node.value, str) and \
+                    re.fullmatch(r"(jax|jaxlib|ray_tpu)(\.\w+)+", node.value):
+                # a module named in a string: `python -m ray_tpu.core.worker`
+                # would start the JAX package's worker
+                names = [node.value]
             else:
                 continue
             for name in names:

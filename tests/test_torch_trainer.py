@@ -1,10 +1,12 @@
 """TorchTrainer: the port's versions of JAX's four trainer tests
-(``tests/test_train.py``), on the CPU with gloo worker processes.
+(``tests/test_train.py``), on the CPU with gloo worker actors.
 
 The loops live in ``tests/_torch_train_loops.py``: a worker imports its loop
-by name. The pytest process starts the workers with ``subprocess.Popen``
-and never joins a process group itself; every attempt runs under a clock
-(``trainer.ATTEMPT_TIMEOUT_S``) and every worker is killed on the way out.
+by name. ``fit`` starts the port's runtime (``ray_tpu_torch.init()``) and
+runs one ``TrainWorker`` actor per rank in a placement group; the pytest
+process never joins a process group itself. Every attempt runs under a
+clock (``trainer.ATTEMPT_TIMEOUT_S``), every actor is killed on the way
+out, and the runtime is shut down after the module.
 """
 
 import os
@@ -26,6 +28,16 @@ from ray_tpu_torch.train import trainer as trainer_mod
 @pytest.fixture(autouse=True)
 def clock(monkeypatch):
     monkeypatch.setattr(trainer_mod, "ATTEMPT_TIMEOUT_S", 60.0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def runtime():
+    """The runtime ``fit`` starts lives for the module, then goes."""
+    import ray_tpu_torch
+
+    ray_tpu_torch.shutdown()  # a runtime another module left in this process
+    yield
+    ray_tpu_torch.shutdown()
 
 
 def test_torch_trainer_dp(tmp_path):
@@ -121,3 +133,43 @@ def test_trainer_defaults_to_the_card(tmp_path, monkeypatch):
                          run_config=RunConfig(storage_path=str(tmp_path / "c5"))).fit()
     cpu = ScalingConfig(use_gpu=False)
     assert cpu.backend() == "gloo" and "GPU" not in cpu.worker_resources()
+
+
+def test_workers_are_actors_of_the_runtime(tmp_path):
+    """Each rank runs in a TrainWorker actor of the port's runtime (a worker
+    process of its own), not in a process the trainer starts itself."""
+    import ray_tpu_torch
+
+    trainer = TorchTrainer(
+        loops.actor_loop,
+        train_loop_config={},
+        scaling_config=ScalingConfig(num_workers=2, use_gpu=False, collective_backend="gloo"),
+        run_config=RunConfig(storage_path=str(tmp_path / "c6")),
+    )
+    result = trainer.fit()
+    assert result.error is None, result.error
+    assert ray_tpu_torch.is_initialized()
+    reports = {m["world_rank"]: m for m in result.metrics_history}
+    assert sorted(reports) == [0, 1]
+    assert all(m["in_actor"] and m["device"] == "cpu" for m in reports.values())
+    pids = {m["pid"] for m in reports.values()}
+    assert len(pids) == 2 and os.getpid() not in pids
+
+
+def test_card_shares_name_one_card_each(monkeypatch):
+    """Whole cards are pinned by the runtime's lease (no ids from the
+    trainer); workers of a share of one card are told which card to set,
+    as many to a card as the share allows."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "2,3")
+    whole = TorchTrainer(loops.answer_loop, scaling_config=ScalingConfig(num_workers=2))
+    assert whole._gpu_ids(2) is None
+    half = TorchTrainer(loops.answer_loop, scaling_config=ScalingConfig(
+        num_workers=4, resources_per_worker={"GPU": 0.5}, collective_backend="gloo"))
+    assert half._gpu_ids(4) == [["2"], ["2"], ["3"], ["3"]]
+    with pytest.raises(RuntimeError, match="need 3 cards"):
+        half._gpu_ids(6)
+    cpu = TorchTrainer(loops.answer_loop, scaling_config=ScalingConfig(use_gpu=False))
+    assert cpu._gpu_ids(1) is None
