@@ -105,8 +105,27 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               (host clock, twice each) and the actor's start and first-tensor
               seconds; then a num_gpus=1 task sees CUDA_VISIBLE_DEVICES "0"
               and the card's name; no worker loads jax or ray_tpu. The
-              runtime stays up for phases 10-13, and is shut down after them.
-10. trainer — TorchTrainer(num_workers=1), NCCL at world size 1: the train
+              runtime stays up for phases 10-15, and is shut down after them.
+10. sharded — the sharded object plane on that runtime: the Llama-3-8B
+              embedding [128256, 4096] bf16 on the card, put_sharded by
+              PartitionRules.llama() at tok/embedding on MeshSpec(fsdp=2,
+              tp=4) (8 shards of [64128, 1024]); a num_gpus=1 shard wave
+              (x2) twice, a reshard to (None, "tp") and back, get_sharded
+              on the card: bytes equal to the whole tensor's x2; driver
+              bytes against shard bytes, put/get/reshard GB/s and the
+              waves' seconds; 0 flash launches.
+11. serve_run — serve.run on that runtime, replicas of num_gpus=1 that
+              make their own seed-0 weights on the card: at 2 layers,
+              float32, full width, 8 concurrent greedy requests through a
+              handle give the in-process LLMServer's tokens; at 32 layers,
+              bf16, serving_server's 8 LLMServer requests through a handle
+              (tokens/s and latencies beside the in-process ones), then
+              build_llm_engine_deployment answers stream_deltas (TTFT
+              beside the in-process engine's); serve.status() shows each
+              replica RUNNING with GPU 1, its worker sees
+              CUDA_VISIBLE_DEVICES "0", loads neither jax nor ray_tpu and
+              launches no flash kernel. Serve is shut down after it.
+12. trainer — TorchTrainer(num_workers=1), NCCL at world size 1: the train
               phase's step (8 layers, B=2, T=2048, bf16, remat, AdamW 1e-4)
               in a TrainWorker actor of the runtime, its card pinned by the
               placement group's lease, params placed by shard_pytree on the
@@ -115,20 +134,20 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               the train phase's (within 1e-6 relative; printed whether
               exactly), the loss finite and falling; the seconds from fit()
               to the first report.
-11. trainer_checkpoint — 2 layers at full width: fit 1 runs 4 steps and
+13. trainer_checkpoint — 2 layers at full width: fit 1 runs 4 steps and
               saves params and AdamW state at step 2 (Checkpoint.
               from_state_dict), fit 2 resumes from it and runs steps 3-4,
               whose losses must equal fit 1's within 1e-6 relative (printed:
               whether exactly); the bytes and the save and load GB/s.
-12. trainer_dp2 — two worker actors sharing the card (GPU 0.5 each, gloo)
+14. trainer_dp2 — two worker actors sharing the card (GPU 0.5 each, gloo)
               take one float32 step at MeshSpec(dp=2) (d_model 1024, 2 layers, B=4,
               T=2048, so the float32 kernels run in both); loss within 1e-5
               (relative) and every updated leaf within 1e-4 of the one-
               process step on the whole batch, and a collective.allreduce of
               numpy giving the sum on both ranks.
-13. dryrun  — ray_tpu_torch.entry.dryrun_multichip(1): NCCL at world size 1,
-              then the trainer arm's two workers.
-14. rllib_parity — ray_tpu_torch.rllib on the card, float32, TF32 off: one
+15. dryrun  — ray_tpu_torch.entry.dryrun_multichip(1): NCCL at world size 1,
+              then the trainer arm's two workers and the sharded arm.
+16. rllib_parity — ray_tpu_torch.rllib on the card, float32, TF32 off: one
               update of each of PPO (minibatches 1), IMPALA, APPO, DQN, SAC,
               BC and CQL from weights drawn once and a fixed batch, against
               the same update on the CPU, each leaf's max error over its
@@ -138,17 +157,17 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               gradients into whole steps); ms per float32 update on the card
               and on the host CPU. The port's CartPole-v1, 2000 random-action
               steps of 8 envs, twice from one seed, must give equal bytes.
-15. rllib_ppo — PPO on the port's CartPole-v1 at test_ppo_learns_cartpole's
+17. rllib_ppo — PPO on the port's CartPole-v1 at test_ppo_learns_cartpole's
               settings (2 runners x 4 envs x 128 steps, lr 1e-3, 4 epochs x
               4 minibatches, hidden 64), 8 iterations: best mean return >
               max(60, 1.5 x first), params on cuda; per iteration sample ms,
               update ms and env steps/s.
-16. rllib_offpolicy — DQN, IMPALA, APPO and SAC at their JAX tests'
+18. rllib_offpolicy — DQN, IMPALA, APPO and SAC at their JAX tests'
               settings and iteration counts, each held to its test's bar,
               and the two-agent runner (TwoAgentTag) with per-policy PPO.
-17. rllib_offline — collect_rollouts -> OfflineData -> BC (agreement with
+19. rllib_offline — collect_rollouts -> OfflineData -> BC (agreement with
               the expert > 0.8) and CQL (prefers the logged action on > 0.9).
-18. rllib_learners — two Learner ranks in two processes sharing the card
+20. rllib_learners — two Learner ranks in two processes sharing the card
               over gloo, one with an empty shard: equal params and Adam
               moments after the sync (the mean of the update and the initial
               state), step counts 16 and 0.
@@ -1086,7 +1105,9 @@ def phase_serving_server(card: str, kernels, cfg, params, cfg32, params32, promp
     as information. 2 layers, float32: __call__, stream and stream_deltas
     give the aggregated engine's tokens (generate's, phase serving), and
     LLMServer and the processor give generate's on the same batches.
-    Returns the kernel launches of the bf16 runs."""
+    Returns the kernel launches of the bf16 runs, and the bf16 readings
+    (with LLMServer's prompts and temperatures) that serve_run repeats
+    through a handle."""
     import numpy as np
 
     from ray_tpu_torch.data import from_items
@@ -1158,6 +1179,8 @@ def phase_serving_server(card: str, kernels, cfg, params, cfg32, params32, promp
         paths = ["__call__", "stream_deltas"] * 3
         res, wall, stats = asyncio.run(engine_server(cfg, params, paths))
         check_completions("serving_server", prompts, [r[0] for r in res], cfg, max_tokens)
+        inproc = {"LLMEngineServer": {"ttft_ms": [r[1] for r in res],
+                                      "tokens_per_s": sum(len(r[0]) for r in res) / wall}}
         emit({"phase": "serving_server", "server": "LLMEngineServer", "layers": cfg.n_layers,
               "dtype": cfg.dtype, "requests": len(prompts), "paths": paths,
               "prompt_lens": [len(q) for q in prompts],
@@ -1175,6 +1198,10 @@ def phase_serving_server(card: str, kernels, cfg, params, cfg32, params32, promp
               "batch_sizes": batch_sizes, "generate_calls": server_calls,
               "latency_s": [r["usage"]["latency_s"] for r in res],
               "tokens_per_s": len(res) * max_tokens / wall, "wall_s": wall, "card": card})
+        inproc["LLMServer"] = {"latency_s": [r["usage"]["latency_s"] for r in res],
+                               "tokens_per_s": len(res) * max_tokens / wall, "wall_s": wall,
+                               "prompts": server_prompts, "temperatures": temps,
+                               "max_tokens": max_tokens}
         if not (min(batch_sizes) > 1 and sorted(server_calls) == [4, 4]):
             raise AssertionError(f"LLMServer batches {batch_sizes}, generate calls "
                                  f"{server_calls}; want one batch, one call per temperature")
@@ -1211,7 +1238,7 @@ def phase_serving_server(card: str, kernels, cfg, params, cfg32, params32, promp
     emit({"phase": "serving_server_f32", "layers": 2, "equal": same})
     if not all(all(v) for v in same.values()):
         raise AssertionError(f"f32 serving layer differs from the engine/generate: {same}")
-    return launches
+    return launches, inproc
 
 
 def check_shipped_pages(cfg, params, prompts, kv_dtypes) -> list:
@@ -2070,6 +2097,258 @@ def phase_runtime(card: str) -> None:
         raise AssertionError(f"a worker loaded {foreign}")
 
 
+# ------------------------------------------------------------ sharded plane
+SHARDED_MESH = {"fsdp": 2, "tp": 4}  # 8 unique shards of the embedding
+
+
+def _sharded_double(x):
+    """The shard wave's body: runs in a shard task that leases the card."""
+    if not x.is_cuda:
+        raise AssertionError(f"a shard task got its shard on {x.device}")
+    return x * 2
+
+
+def phase_sharded(card: str) -> dict:
+    """The sharded object plane on the runtime of phase runtime: the
+    Llama-3-8B embedding [128256, 4096] bf16 on the card, put by
+    PartitionRules.llama() at tok/embedding on MeshSpec(fsdp=2, tp=4)
+    (8 shards of [64128, 1024]); a num_gpus=1 shard wave (x2) twice, a
+    reshard to (None, tp) and back, get_sharded on the card; the bytes must
+    equal the whole tensor's x2 (exact in bf16). Prints the driver's bytes
+    against the shards', the put, get and reshard GB/s and the waves'
+    seconds (host clock). Returns the flash launches of the phase (0)."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.sharding import PartitionRules
+    from ray_tpu_torch.sharded import P, stats, telemetry
+
+    cfg = LlamaConfig.llama3_8b()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    emb = torch.randn(cfg.vocab_size, cfg.d_model, generator=g, device="cuda").to(torch.bfloat16)
+    nbytes = emb.numel() * emb.element_size()
+    want = emb * 2
+    mesh = MeshSpec(**SHARDED_MESH)
+    sync = torch.cuda.synchronize
+    telemetry.reset_counters()
+    kernels.LAUNCHES.clear()  # the sharded plane's runs start here
+
+    def timed_s(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    sref, put_s = timed_s(lambda: rt.put_sharded(emb, mesh=mesh, rules=PartitionRules.llama(),
+                                                 path="tok/embedding"))
+    boxes = [[b - a for a, b in s.box] for s in sref.manifest.shards]
+    if sref.spec != ("fsdp", "tp") or boxes != [[64128, 1024]] * 8:
+        raise AssertionError(f"put_sharded: spec {sref.spec}, boxes {boxes}")
+    double = rt.remote(in_specs=P("fsdp", "tp"), out_specs=P("fsdp", "tp"),
+                       num_gpus=1)(_sharded_double)
+    wave_s = []
+    for _ in range(2):  # the first wave starts the shard tasks' worker
+        t0 = time.perf_counter()
+        out = double.remote(sref)
+        ready, _ = rt.wait(out.shard_refs(), num_returns=out.num_shards(), timeout=600)
+        wave_s.append(time.perf_counter() - t0)
+        if len(ready) != out.num_shards():
+            raise AssertionError(f"shard wave: {len(ready)} of {out.num_shards()} shards")
+    del sref
+    gc.collect()
+    moved, reshard_s = timed_s(lambda: rt.reshard(out, (None, "tp"), mesh=mesh, device="cuda"))
+    back, reshard_back_s = timed_s(lambda: rt.reshard(moved, ("fsdp", "tp"), mesh=mesh,
+                                                             device="cuda"))
+    del out, moved
+    gc.collect()
+    got, get_s = timed_s(lambda: rt.get_sharded(back, mesh=mesh, device="cuda"))
+    equal = bool(torch.equal(got.view(torch.int16), want.view(torch.int16)))
+    counters = stats()
+    launches = dict(kernels.launches())
+    emit({"phase": "sharded", "tensor": [cfg.vocab_size, cfg.d_model], "dtype": "bfloat16",
+          "bytes": nbytes, "mesh": SHARDED_MESH, "spec": list(back.spec),
+          "shards": back.num_shards(), "shard_shape": boxes[0], "equal": equal,
+          "driver_bytes": counters["driver_bytes"], "array_bytes": counters["array_bytes"],
+          "counters": counters, "put_s": put_s, "put_gb_per_s": nbytes / put_s / 1e9,
+          "wave_s": wave_s, "reshard_s": [reshard_s, reshard_back_s],
+          "reshard_gb_per_s": [nbytes / reshard_s / 1e9, nbytes / reshard_back_s / 1e9],
+          "get_s": get_s, "get_gb_per_s": nbytes / get_s / 1e9, "launches": launches,
+          "card": card})
+    del got, back, emb, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not equal:
+        raise AssertionError("get_sharded of the doubled, resharded embedding differs")
+    if not counters["driver_bytes"] < counters["array_bytes"] / 1000:
+        raise AssertionError(f"the driver moved {counters['driver_bytes']} bytes")
+    return launches
+
+
+# ----------------------------------------------------------------- serve_run
+def _llm_probe_class():
+    """LLMServer with one method more, ``probe``: what its replica's worker
+    sees (its card, the modules it loaded, the flash launches it made). The
+    deployment is build_llm_deployment's, config and arguments unchanged."""
+    from ray_tpu_torch.llm import LLMServer
+
+    class ProbedLLMServer(LLMServer):
+        def probe(self):
+            import torch
+
+            from ray_tpu_torch import kernels
+
+            leaf = self.params["tok"]["embedding"]
+            return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "count": torch.cuda.device_count(), "weights_device": str(leaf.device),
+                    "weights_dtype": str(leaf.dtype).removeprefix("torch."),
+                    "foreign": _foreign_modules(), "launches": dict(kernels.launches())}
+
+    return ProbedLLMServer
+
+
+def _probed(app):
+    from ray_tpu_torch.serve import Application, Deployment
+
+    dep = app.deployment
+    return Application(Deployment(_llm_probe_class(), dep.name, dep.config), app.init_args,
+                       app.init_kwargs)
+
+
+def phase_serve_run(card: str, inproc: dict) -> dict:
+    """serve.run on the runtime of phase runtime, each replica a num_gpus=1
+    actor that makes its own seed-0 weights on its card. At 2 layers,
+    float32, full width: 8 concurrent greedy requests through a handle
+    give the in-process LLMServer's tokens on the same weights. At 32
+    layers, bf16: serving_server's 8 LLMServer requests through a handle
+    (a warm-up round, then a timed one), tokens/s and latencies beside the
+    in-process readings; then build_llm_engine_deployment answers a
+    stream_deltas request twice (the second's TTFT beside the in-process
+    engine's; the first starts the replica's engine loop).
+    serve.status() shows each replica RUNNING with GPU 1, and its worker
+    sees CUDA_VISIBLE_DEVICES "0" and loads neither jax nor ray_tpu.
+    Serve is shut down at the end. Returns the replicas' flash launches."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import kernels, serve
+    from ray_tpu_torch.llm import LLMServer, build_llm_deployment, build_llm_engine_deployment
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    ls = inproc["LLMServer"]
+    prompts, temps, max_tokens = ls["prompts"], ls["temperatures"], ls["max_tokens"]
+    kernels.LAUNCHES.clear()  # the serve_run phase starts here
+    launches: collections.Counter = collections.Counter()
+
+    def replica_of(app_name, dep):
+        (rep,) = serve.status()[app_name][dep]["replicas"]
+        return rep
+
+    def run(app_name, cfg, temps_):
+        app = _probed(build_llm_deployment(cfg, num_gpus=1, max_batch_size=8))
+        t0 = time.perf_counter()
+        handle = serve.run(app, name=app_name)
+        start_s = time.perf_counter() - t0
+        reqs = [{"prompt_tokens": q, "max_tokens": max_tokens, "temperature": t}
+                for q, t in zip(prompts, temps_)]
+        rounds = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            refs = [handle.remote(r) for r in reqs]
+            res = rt.get(refs, timeout=600)
+            rounds.append((res, time.perf_counter() - t0))
+        probe = rt.get(handle.probe.remote(), timeout=120)
+        launches.update(probe["launches"])
+        return rounds, probe, replica_of(app_name, "LLMServer"), start_s
+
+    def check_replica(name, rep, probe, dtype):
+        if rep["state"] != "RUNNING" or rep["resources"].get("GPU") != 1.0:
+            raise AssertionError(f"{name} replica {rep}")
+        if (probe["visible"] != "0" or probe["count"] != 1 or probe["foreign"]
+                or probe["weights_device"] != "cuda:0" or probe["weights_dtype"] != dtype):
+            raise AssertionError(f"{name} replica's worker: {probe}")
+
+    # 2 layers, float32, full width: token identity with the in-process server
+    cfg32 = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2, dtype="float32")
+    greedy = [0.0] * len(prompts)
+    rounds, probe32, rep32, start32 = run("serve_run_f32", cfg32, greedy)
+    got = [r["completion_tokens"] for r in rounds[-1][0]]
+    srv = LLMServer(cfg32, max_batch_size=8)  # the seed-0 weights, on this process's card
+
+    async def in_process():
+        return await asyncio.gather(*[srv({"prompt_tokens": q, "max_tokens": max_tokens})
+                                      for q in prompts])
+
+    want = [r["completion_tokens"] for r in asyncio.run(in_process())]
+    del srv
+    serve.delete("serve_run_f32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    equal = [a == b for a, b in zip(got, want)]
+    check_replica("float32", rep32, probe32, "float32")
+
+    # 32 layers, bf16: serving_server's requests through a handle
+    cfg = LlamaConfig.llama3_8b()
+    rounds, probe, rep, start_s = run("serve_run", cfg, temps)
+    res, wall = rounds[-1]
+    check_completions("serve_run", prompts, [r["completion_tokens"] for r in res], cfg,
+                      max_tokens)
+    check_replica("bf16", rep, probe, "bfloat16")
+    batch_sizes = [r["usage"]["batch_size"] for r in res]
+    serve.delete("serve_run")
+
+    # the engine deployment: one stream_deltas request through a handle
+    app = build_llm_engine_deployment(cfg, num_gpus=1, max_batch=4, page_size=16,
+                                      n_pages=512, max_seq_len=2048)
+    t0 = time.perf_counter()
+    serve.run(app, name="serve_run_engine")
+    engine_start_s = time.perf_counter() - t0
+    handle = serve.get_deployment_handle("LLMEngineServer", "serve_run_engine")
+    req = {"prompt_tokens": prompts[3], "max_tokens": max_tokens}
+    first_call = []
+    for _ in range(2):  # the first call starts the replica's engine loop
+        deltas, ttft_ms = [], None
+        t0 = time.perf_counter()
+        for d in handle.stream_deltas.stream_chunks(dict(req)):
+            ttft_ms = ttft_ms or (time.perf_counter() - t0) * 1e3
+            deltas.append(d)
+        stream_s = time.perf_counter() - t0
+        first_call = first_call or [ttft_ms, stream_s]
+    toks = [t for d in deltas for t in d["tokens"]]
+    erep = replica_of("serve_run_engine", "LLMEngineServer")
+    serve.shutdown()  # every replica goes, and its card with it
+    emit({"phase": "serve_run", "f32_layers": 2, "f32_equal": equal,
+          "f32_replica_start_s": start32, "replica": rep, "replica_worker": probe,
+          "layers": cfg.n_layers, "dtype": cfg.dtype, "requests": len(res),
+          "temperatures": temps, "batch_sizes": batch_sizes, "replica_start_s": start_s,
+          "handle_wall_s": wall, "handle_tokens_per_s": len(res) * max_tokens / wall,
+          "warmup_wall_s": rounds[0][1],
+          "replica_latency_s": [r["usage"]["latency_s"] for r in res],
+          "in_process_tokens_per_s": ls["tokens_per_s"], "in_process_wall_s": ls["wall_s"],
+          "in_process_latency_s": ls["latency_s"],
+          "engine_replica": erep, "engine_start_s": engine_start_s,
+          "engine_stream_deltas": len(deltas) - 1, "engine_stream_tokens": len(toks),
+          "engine_ttft_ms": ttft_ms, "engine_stream_s": stream_s,
+          "engine_first_call_ttft_ms_and_s": first_call,
+          "in_process_engine_ttft_ms": [t for t in inproc["LLMEngineServer"]["ttft_ms"]
+                                        if t is not None],
+          "in_process_engine_tokens_per_s": inproc["LLMEngineServer"]["tokens_per_s"],
+          "replica_flash_launches": dict(launches), "card": card})
+    if not all(equal):
+        raise AssertionError(f"float32 replica tokens differ from the in-process server: {equal}")
+    if min(batch_sizes) < 2:
+        raise AssertionError(f"the replica's LLMServer did not batch: {batch_sizes}")
+    if not (deltas and deltas[-1].get("done") and len(toks) == max_tokens
+            and all(0 <= t < cfg.vocab_size for t in toks)):
+        raise AssertionError(f"stream_deltas through the handle: {deltas[-1:]}, {len(toks)}")
+    if erep["state"] != "RUNNING" or erep["resources"].get("GPU") != 1.0:
+        raise AssertionError(f"engine replica {erep}")
+    return dict(launches)
+
+
 def _no_tf32():
     import torch
 
@@ -2387,7 +2666,8 @@ def phase_trainer_dp2(card: str) -> None:
 
 def phase_dryrun(card: str) -> None:
     """entry.dryrun_multichip(1) on the card: NCCL at world size 1 for
-    configuration A, then the trainer arm's two workers sharing it."""
+    configuration A, then the trainer arm's two workers sharing it, then the
+    sharded arm."""
     from ray_tpu_torch.entry import dryrun_multichip
 
     t0 = time.perf_counter()
@@ -3006,8 +3286,8 @@ def main() -> int:
     phase_serving_int8(card, cfg, params, cfg32, params32, prompts, planned, ref32)
     phase_serving_spec(card, cfg, params, cfg32, params32, prompts)
     phase_serving_adopt(card, cfg, params, cfg32, params32, prompts)
-    layer_launches = phase_serving_server(card, kernels, cfg, params, cfg32, params32,
-                                          prompts, ref32)
+    layer_launches, inproc = phase_serving_server(card, kernels, cfg, params, cfg32,
+                                                  params32, prompts, ref32)
     disagg_launches = phase_serving_disagg(card, kernels, cfg, params, cfg32, params32,
                                            prompts, ref32, planned_ttft)
     del params, params32, tokens
@@ -3024,6 +3304,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_runtime(card)
+    sharded_launches = phase_sharded(card)
+    serve_launches_replicas = phase_serve_run(card, inproc)
     # the trainer's worker actors take the card from here
     trainer_launches = phase_trainer(card, train_losses)
     phase_trainer_checkpoint(card)
@@ -3062,6 +3344,8 @@ def main() -> int:
                    if key.startswith(name + ":")},
                "moe_train_launches": moe_train_launches[name],
                "moe_train_launches_per_step": moe_step_launches[name],
+               "sharded_launches": sharded_launches.get(name, 0),
+               "serve_run_launches": serve_launches_replicas.get(name, 0),
                "rllib_launches": rl_launches[name], **k[name]}
         if name != "flash_attention_fwd":
             row["plain_and_library_cover"] = "dq+dkv"

@@ -3,16 +3,18 @@
 A package beside ``ray_tpu`` that imports ``torch`` (never ``jax``, and
 nothing of ``ray_tpu``) and mirrors its layout: the task/actor runtime
 (``core``, ``_native``, ``config``, ``runtime_env``, ``util``,
-``devtools.chaos``), ``ops``, ``models``, ``llm``, ``serve``, ``data``,
-``parallel``, ``collective``, ``train``, ``rllib``, ``accelerators`` and
-``utils``. Every Pallas TPU kernel on a ported path becomes a kernel written
-by hand for Hopper (``csrc/``, built by ``kernels``). Entry points run on
-the CUDA card unless the caller passes ``device="cpu"``; the runtime's
-``num_gpus`` leases whole cards through ``CUDA_VISIBLE_DEVICES``.
+``devtools.chaos``), ``sharded``, ``ops``, ``models``, ``llm``, ``serve``,
+``data``, ``parallel``, ``collective``, ``train``, ``rllib``,
+``accelerators`` and ``utils``. Every Pallas TPU kernel on a ported path
+becomes a kernel written by hand for Hopper (``csrc/``, built by
+``kernels``). Entry points run on the CUDA card unless the caller passes
+``device="cpu"``; the runtime's ``num_gpus`` leases whole cards through
+``CUDA_VISIBLE_DEVICES``.
 
 The top-level API (``init``, ``remote``, ``get``, ``put``, ``wait``,
-``kill``, ...) is ``ray_tpu_torch.core.api``'s, imported on first use so
-that ``import ray_tpu_torch`` stays cheap (no torch import).
+``kill``, ``put_sharded``, ``get_sharded``, ``reshard``, ...) is
+``ray_tpu_torch.core.api``'s, imported on first use so that ``import
+ray_tpu_torch`` stays cheap (no torch import).
 """
 
 from ray_tpu_torch._version import __version__  # noqa: F401

@@ -22,6 +22,8 @@ card.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -193,3 +195,23 @@ class TorchCollectiveGroup(Communicator):
         if self._group is not None:
             dist.destroy_process_group(self._group)
             self._group = None
+
+
+@functools.lru_cache(maxsize=64)
+def _placements_for(mesh, spec: tuple) -> tuple:
+    """The target placements of ``spec`` on ``mesh``, worked out once per
+    (mesh, spec), as JAX caches one respec program per pair."""
+    from ray_tpu_torch.parallel.sharding import placements
+
+    return tuple(placements(spec, mesh))
+
+
+def redistribute(dtensor, mesh, new_spec):
+    """Respec a ``DTensor`` to ``new_spec`` on ``mesh`` (JAX's
+    ``collective/xla_group.py`` ``redistribute``): ``DTensor.redistribute``
+    runs whatever collective the move needs (all-gather to de-shard a dim,
+    all-to-all to move a dim between axes) over the mesh's group. Every
+    rank of the mesh calls it. The sharded object plane's reshard path
+    (``sharded/reshard.py``) goes through here on a ``DeviceMesh``."""
+    spec = tuple(e if e is None or isinstance(e, str) else tuple(e) for e in new_spec)
+    return dtensor.redistribute(mesh, _placements_for(mesh, spec))

@@ -32,9 +32,6 @@ from ray_tpu_torch.utils.ids import PlacementGroupID
 log = logging.getLogger(__name__)
 
 _GPU = GPUAcceleratorManager.get_resource_name()
-#: what the sharded plane and dag need; ROADMAP's queue of the port
-_NOT_PORTED = ("is not ported yet: it rides on {} of the JAX package, next in "
-               "ROADMAP.md's Queue 1")
 
 _core: CoreClient | None = None
 _io: rpc.EventLoopThread | None = None
@@ -521,14 +518,20 @@ def _actor_resources(o: dict) -> dict:
 def remote(*args, **options):
     """@ray_tpu_torch.remote decorator for functions and classes.
 
-    ``in_specs``/``out_specs`` (the JAX package's sharded object plane,
-    ``ray_tpu/sharded/submit.py``) raise ``NotImplementedError``."""
+    ``in_specs``/``out_specs`` (spec tuples) switch the handle onto the
+    sharded object plane: one task per shard, routed to the node holding
+    it, with resharding on spec disagreement (see
+    ray_tpu_torch/sharded/submit.py)."""
 
     def wrap(obj):
         if "in_specs" in options or "out_specs" in options:
-            raise NotImplementedError(
-                "in_specs/out_specs: the sharded plane "
-                + _NOT_PORTED.format("ray_tpu/sharded/submit.py"))
+            if isinstance(obj, type):
+                raise TypeError(
+                    "in_specs/out_specs apply to functions; shard actor "
+                    "inputs by passing ShardedObjectRefs to methods")
+            from ray_tpu_torch.sharded.submit import ShardedFunction
+
+            return ShardedFunction(obj, options)
         if isinstance(obj, type):
             return ActorClass(obj, **options)
         return RemoteFunction(obj, **options)
@@ -540,20 +543,29 @@ def remote(*args, **options):
 
 # ---------------------------------------------------------- sharded plane
 def put_sharded(value, **kw):
-    """The JAX package's ``put_sharded`` (``ray_tpu/sharded/plane.py``):
-    not ported yet."""
-    raise NotImplementedError("put_sharded " + _NOT_PORTED.format("ray_tpu/sharded/plane.py"))
+    """Store a sharded array as per-host shm shards behind ONE manifest
+    (see ray_tpu_torch/sharded/plane.py). Never serializes the global
+    array."""
+    from ray_tpu_torch.sharded import plane
+
+    return plane.put_sharded(value, **kw)
 
 
 def get_sharded(sref, **kw):
-    """The JAX package's ``get_sharded``: not ported yet."""
-    raise NotImplementedError("get_sharded " + _NOT_PORTED.format("ray_tpu/sharded/plane.py"))
+    """The value of a ShardedObjectRef: the global tensor stitched on a
+    device (``mesh=MeshSpec``), or this rank's ``DTensor`` (``mesh=``
+    a ``DeviceMesh``)."""
+    from ray_tpu_torch.sharded import plane
+
+    return plane.get_sharded(sref, **kw)
 
 
 def reshard(sref, spec, **kw):
-    """The JAX package's ``reshard`` (``ray_tpu/sharded/reshard.py``):
-    not ported yet."""
-    raise NotImplementedError("reshard " + _NOT_PORTED.format("ray_tpu/sharded/reshard.py"))
+    """Redistribute a ShardedObjectRef to a new spec (no driver
+    gather-scatter)."""
+    from ray_tpu_torch.sharded.reshard import reshard as _reshard
+
+    return _reshard(sref, spec, **kw)
 
 
 class CppFunction:

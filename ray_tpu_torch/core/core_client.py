@@ -1634,6 +1634,10 @@ class CoreClient:
         if not ok or w not in state.workers:
             ring.close_pair()
             return
+        # both ends have it mapped: drop the name now, so a process that is
+        # killed (workers are terminated, never shut down) leaks no
+        # /dev/shm entry; the mapping lives until close_pair
+        ring.unlink()
         lane = fastpath.FastLane(ring, w, key)
         t = _threading.Thread(target=self._fast_reader, args=(lane,),
                               name="rt-fastread", daemon=True)
@@ -2151,6 +2155,7 @@ class CoreClient:
         if not ok or self._actor_conns.get(actor_id) is not conn:
             ring.close_pair()
             return
+        ring.unlink()  # both ends have it mapped (see _fast_attach)
         lane = fastpath.FastLane(
             ring,
             SimpleNamespace(conn=conn, fast_lane=None, idle_since=0.0,

@@ -5,9 +5,8 @@ Counterpart of ``__graft_entry__.py``: ``entry()`` has the same
 configuration and ``[2, 256]`` tokens, returning ``(fn, example_args)`` on
 the device; ``dryrun_multichip(n)`` runs one AdamW step of every
 parallelism configuration of ``__graft_entry__.dryrun_multichip`` over n
-ranks, and its trainer arm. Its sharded-object-plane arm
-(``_dryrun_sharded``) is left out: ``sharded/`` rides on the JAX package's
-actor runtime and object store, which the port does not copy.
+ranks, its trainer arm, and its sharded-object-plane arm on the port's
+runtime.
 """
 from __future__ import annotations
 
@@ -171,8 +170,8 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     (B-D where ``n_devices % 8 == 0``), then the trainer arm: a 2-worker
     ``TorchTrainer`` whose workers take a dp·tp gradient over their mesh
     and all-reduce the loss and a gradient slice through ``collective``
-    (gloo; on one card both workers share it, at dp=2). The sharded object
-    plane's arm waits for ``sharded/`` (see the module docstring)."""
+    (gloo; on one card both workers share it, at dp=2), then the sharded
+    object plane's arm (``_dryrun_sharded``)."""
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
 
     dev = resolve_device(device)
@@ -207,4 +206,46 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
               f"loss={loss:.4f}", flush=True)
     finally:
         shutil.rmtree(storage, ignore_errors=True)
+    _dryrun_sharded(n_devices, dev)
     print(f"dryrun_multichip OK: devices={n_devices}, all configs finite", flush=True)
+
+
+def _dryrun_sharded(n_devices: int, device) -> None:
+    """Sharded-object-plane arm: a dp·tp-sharded batch on ``device`` goes
+    through put_sharded -> ``@remote(in_specs=..., out_specs=...)`` shard
+    wave (with a (dp, tp) -> (dp,) reshard on the spec mismatch) ->
+    reshard to (None, tp) -> get_sharded, checked against the same
+    arithmetic on the whole tensor; prints the driver-vs-array byte
+    counts. Shard tasks lease the card when ``device`` is one."""
+    import ray_tpu_torch
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.sharded import P, stats
+
+    owns_cluster = not api.is_initialized()
+    if owns_cluster:
+        ray_tpu_torch.init(num_cpus=8)
+    try:
+        n = min(n_devices, 8)
+        spec = MeshSpec(dp=max(1, n // 2), tp=2 if n % 2 == 0 else 1)
+        arr = torch.randn(spec.dp * 4, 64, device=device,
+                          generator=torch.Generator(device=device).manual_seed(0))
+        sref = ray_tpu_torch.put_sharded(arr, mesh=spec, spec=("dp", "tp"))
+
+        @ray_tpu_torch.remote(in_specs=P("dp"), out_specs=P("dp"), device=device,
+                              num_gpus=1 if device.type == "cuda" else 0)
+        def scale(x):
+            return x * 2.0
+
+        out = scale.remote(sref)
+        got = ray_tpu_torch.get_sharded(out, mesh=spec, device=device)
+        assert torch.equal(got, arr * 2.0), "sharded wave mismatch"
+        back = ray_tpu_torch.reshard(out, (None, "tp"), mesh=spec, device=device)
+        got2 = ray_tpu_torch.get_sharded(back, mesh=spec, device=device)
+        assert torch.equal(got2, arr * 2.0), "reshard mismatch"
+        s = stats()
+        print(f"dryrun[sharded-object-plane] OK: shards={out.num_shards()}"
+              f" driver_bytes={s['driver_bytes']} array_bytes={s['array_bytes']}",
+              flush=True)
+    finally:
+        if owns_cluster:
+            ray_tpu_torch.shutdown()

@@ -9,9 +9,11 @@ requests join the running decode batch at block granularity and can
 stream. Both speak the same OpenAI-completions-shaped dict protocol:
 ``{prompt_tokens, max_tokens?, temperature?, model?}`` in,
 ``{completion_tokens, usage}`` out. The build functions return a bound
-``Application``; the port has no ``serve.run`` to deploy it (it rides on
-the JAX package's actor runtime), so a caller builds the class in
-process.
+``Application`` for ``serve.run``: each replica is an actor of the port's
+runtime that makes its own weights where it runs (``params_fn``, or the
+seed-0 init of ``resolve_params`` on ``device``), so no weights ride the
+RPC frame; ``num_gpus=1`` leases it a card, and a replica that sees no
+card raises rather than run on the CPU.
 """
 from __future__ import annotations
 
@@ -202,8 +204,11 @@ class LLMEngineServer:
 
 def build_llm_engine_deployment(model_config, *, params=None, params_fn=None,
                                 num_replicas: int = 1, num_gpus: float = 0.0,
-                                name: str = "LLMEngineServer", **engine_kw):
-    """Bound application around the continuous-batching engine."""
+                                name: str = "LLMEngineServer", device=None,
+                                **engine_kw):
+    """Bound application around the continuous-batching engine. ``device``
+    is where each replica builds its weights and engine (None: the card;
+    CPU tests pass "cpu")."""
     opts: dict = {}
     if num_gpus:
         opts["num_gpus"] = num_gpus
@@ -214,13 +219,16 @@ def build_llm_engine_deployment(model_config, *, params=None, params_fn=None,
         max_ongoing_requests=64,
         ray_actor_options=opts,
     )
-    return dep.bind(model_config, params, params_fn, **engine_kw)
+    return dep.bind(model_config, params, params_fn, device=device, **engine_kw)
 
 
 def build_llm_deployment(model_config, *, params=None, params_fn=None,
                          num_replicas: int = 1, max_batch_size: int = 8,
-                         num_gpus: float = 0.0, name: str = "LLMServer"):
-    """Bound application for a Llama config around ``LLMServer``."""
+                         num_gpus: float = 0.0, name: str = "LLMServer",
+                         device=None):
+    """Bound application for a Llama config around ``LLMServer``.
+    ``device`` is where each replica builds its weights (None: the card;
+    CPU tests pass "cpu")."""
     opts: dict = {}
     if num_gpus:
         opts["num_gpus"] = num_gpus
@@ -231,4 +239,4 @@ def build_llm_deployment(model_config, *, params=None, params_fn=None,
         max_ongoing_requests=max_batch_size * 2,
         ray_actor_options=opts,
     )
-    return dep.bind(model_config, params, params_fn, max_batch_size)
+    return dep.bind(model_config, params, params_fn, max_batch_size, device=device)

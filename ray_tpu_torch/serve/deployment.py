@@ -1,19 +1,24 @@
-"""Deployment authoring: ``deployment()`` and ``.bind()`` composition.
+"""Deployment authoring: @serve.deployment + .bind() composition.
 
-Counterpart of ``ray_tpu/serve/deployment.py:24-136``, the pure-data part:
-a ``Deployment`` wraps a user class with a ``DeploymentConfig``;
-``.bind(*args)`` gives an ``Application`` node whose args may themselves be
-bound deployments. The port has no ``serve.run``, controller or replicas
-(they ride on the JAX package's actor runtime), so an ``Application`` is a
-description: ``app.deployment._callable(*app.init_args,
-**app.init_kwargs)`` builds the bound object in this process.
+Equivalent of the reference authoring surface (ref:
+python/ray/serve/deployment.py Deployment, api.py:675 serve.run;
+deployment graph build via .bind). A Deployment wraps a user class with a
+DeploymentConfig; .bind(*args) produces an Application node whose args may
+themselves be bound deployments — serve.run deploys the whole graph and
+wires child handles into parent init args.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+try:
+    import cloudpickle
+except ImportError:  # pragma: no cover
+    import pickle as cloudpickle
+
 from ray_tpu_torch.serve.config import AutoscalingConfig, DeploymentConfig
+from ray_tpu_torch.serve.replica import HandleMarker
 
 
 @dataclasses.dataclass
@@ -129,3 +134,28 @@ def deployment(cls_or_fn=None, *, name: str | None = None, num_replicas: int = 1
     if cls_or_fn is not None:
         return wrap(cls_or_fn)
     return wrap
+
+
+def build_specs(app: Application, app_name: str) -> tuple[str, dict[str, dict]]:
+    """Flatten a bound graph into controller deploy specs; nested bound
+    deployments become HandleMarkers resolved replica-side."""
+    seen: dict[str, Application] = {}
+    app._collect(seen)
+
+    def marker(a: Any):
+        if isinstance(a, Application):
+            return HandleMarker(a.deployment.name, app_name)
+        return a
+
+    specs = {}
+    for name, node in seen.items():
+        from ray_tpu_torch.utils import serialization
+
+        specs[name] = {
+            "serialized_cls": serialization.ship_dumps(node.deployment._callable),
+            "init_args": tuple(marker(a) for a in node.init_args),
+            "init_kwargs": {k: marker(v) for k, v in node.init_kwargs.items()},
+            "config": node.deployment.config,
+        }
+    ingress = app.deployment.name
+    return ingress, specs

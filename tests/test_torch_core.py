@@ -24,9 +24,14 @@ import pytest
 import torch
 
 import ray_tpu_torch
+from _torch_time_limit import time_limits
 from ray_tpu_torch import config
 from ray_tpu_torch.core.ref import ActorError, TaskError
 from ray_tpu_torch.utils import serialization
+
+# slowest case ~7 s alone (test_cards_come_back_when_the_worker_exits); set-up
+# and tear-down (the runtime's start and shutdown) a few seconds
+_module_limit, _test_limit = time_limits(module_s=60, test_s=40)
 
 
 @pytest.fixture(scope="module")
@@ -496,3 +501,37 @@ def test_create_collective_group_on_actors(rt, tmp_path):
         np.testing.assert_array_equal(got, np.full(3, 3.0))
     for m in members:
         rt.kill(m)
+
+
+@ray_tpu_torch.remote
+class _Pid:
+    def pid(self):
+        return os.getpid()
+
+
+def test_lane_rings_leave_no_shm_names(rt):
+    """A driver's task lanes and a worker's actor lane unlink their ring
+    names once both ends have mapped them, so a worker that is killed
+    (never shut down) leaves no ``/dev/shm/rtt_fp_*`` behind."""
+
+    @rt.remote
+    def caller(actor):
+        return os.getpid(), [rt.get(actor.pid.remote()) for _ in range(20)][-1]
+
+    actor = _Pid.remote()
+    pids = {os.getpid()}
+    for _ in range(3):
+        pids.update(rt.get(caller.remote(actor), timeout=60))
+    pids.update(rt.get([actor.pid.remote() for _ in range(20)], timeout=60))
+
+    def left():
+        return [n for n in os.listdir("/dev/shm")
+                if n.startswith("rtt_fp_") and int(n.split("_")[2]) in pids]
+
+    # a lane being attached right now holds its name for a moment; a leaked
+    # one holds it for good
+    deadline = time.monotonic() + 5
+    while left() and time.monotonic() < deadline:
+        time.sleep(0.1)
+    rt.kill(actor)
+    assert not left(), left()

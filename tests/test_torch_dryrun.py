@@ -1,6 +1,7 @@
 """``ray_tpu_torch.entry.dryrun_multichip(8)`` on the CPU: 8 gloo ranks of a
 TorchTrainer run one AdamW step of each parallelism configuration of
-``__graft_entry__.dryrun_multichip`` (A-D), then the 2-worker trainer arm.
+``__graft_entry__.dryrun_multichip`` (A-D), then the 2-worker trainer arm
+and the sharded object plane's arm.
 
 It runs in a fresh interpreter (the trainer's workers are its children)
 under a 120 s clock, and every line JAX's dryrun prints must be there."""
@@ -30,4 +31,6 @@ def test_torch_dryrun():
         for axis, size in mesh.items():
             assert f"'{axis}': {size}" in line[0], (label, line[0])
         assert re.search(r"loss=\d+\.\d{4}$", line[0]), line[0]
+    sharded = [ln for ln in lines if ln.startswith("dryrun[sharded-object-plane] OK: ")]
+    assert len(sharded) == 1 and "shards=4 " in sharded[0], lines
     assert lines[-1] == "dryrun_multichip OK: devices=8, all configs finite"

@@ -46,7 +46,18 @@ SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
                "ray_tpu_torch.util.queue", "ray_tpu_torch.utils.ids", "ray_tpu_torch.utils.aio",
                "ray_tpu_torch.utils.rpc", "ray_tpu_torch.utils.schema",
                "ray_tpu_torch.utils.metrics", "ray_tpu_torch.utils.recorder",
-               "ray_tpu_torch.utils.tracing"]
+               "ray_tpu_torch.utils.tracing",
+               "ray_tpu_torch.sharded", "ray_tpu_torch.sharded.manifest",
+               "ray_tpu_torch.sharded.plane", "ray_tpu_torch.sharded.reshard",
+               "ray_tpu_torch.sharded.submit", "ray_tpu_torch.sharded.telemetry",
+               "ray_tpu_torch.serve.context", "ray_tpu_torch.serve.schema",
+               "ray_tpu_torch.serve.multiplex", "ray_tpu_torch.serve.replica",
+               "ray_tpu_torch.serve.controller", "ray_tpu_torch.serve.handle",
+               "ray_tpu_torch.serve.http_proxy", "ray_tpu_torch.serve.grpc_proxy",
+               "ray_tpu_torch.serve.dataplane", "ray_tpu_torch.serve.dataplane.admission",
+               "ray_tpu_torch.serve.dataplane.slo", "ray_tpu_torch.serve.dataplane.fastlane",
+               "ray_tpu_torch.serve.dataplane.autoscaler", "ray_tpu_torch.serve.streaming",
+               "ray_tpu_torch.serve.streaming.slo"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_time_limit import time_limits
 from ray_tpu_torch import _native
 from ray_tpu_torch.core.object_store import (
     ObjectStoreError,
@@ -20,6 +21,9 @@ from ray_tpu_torch.core.object_store import (
     SharedObjectStore,
 )
 from ray_tpu_torch.utils.ids import ObjectID
+
+# slowest case ~5 s alone (test_cross_process_get, which forks a child)
+_module_limit, _test_limit = time_limits(module_s=60, test_s=25)
 
 
 @pytest.fixture

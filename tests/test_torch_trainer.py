@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 import _torch_train_loops as loops
+from _torch_time_limit import time_limits
 from ray_tpu_torch.train import (
     CheckpointConfig,
     FailureConfig,
@@ -23,6 +24,9 @@ from ray_tpu_torch.train import (
     TorchTrainer,
 )
 from ray_tpu_torch.train import trainer as trainer_mod
+
+# slowest case ~11.5 s alone (test_torch_trainer_worker_failure_restarts)
+_module_limit, _test_limit = time_limits(module_s=60, test_s=60)
 
 
 @pytest.fixture(autouse=True)
