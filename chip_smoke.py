@@ -59,7 +59,9 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               prefix + suffix); at 2 layers, float32, both legs must give the
               aggregated engine's tokens, and every shipped page and adopted
               stack must equal its pool rows bit for bit (native, bf16 and
-              int8 pools; the bf16 native pool at 32 layers too).
+              int8 pools; the bf16 native pool at 32 layers too). The plane
+              seals pages into the port's runtime's shm arena: the phase
+              starts the runtime and shuts it down.
 5. train    — with the earlier weights and pools freed: Llama-3-8B width cut
               to 8 layers, bf16, remat on, tokens [2, 2049]; one step's
               gradients with attn_impl="auto" against "plain" (loss within
@@ -105,7 +107,7 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               (host clock, twice each) and the actor's start and first-tensor
               seconds; then a num_gpus=1 task sees CUDA_VISIBLE_DEVICES "0"
               and the card's name; no worker loads jax or ray_tpu. The
-              runtime stays up for phases 10-15, and is shut down after them.
+              runtime stays up for phases 10-16, and is shut down after them.
 10. sharded — the sharded object plane on that runtime: the Llama-3-8B
               embedding [128256, 4096] bf16 on the card, put_sharded by
               PartitionRules.llama() at tok/embedding on MeshSpec(fsdp=2,
@@ -125,7 +127,22 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               replica RUNNING with GPU 1, its worker sees
               CUDA_VISIBLE_DEVICES "0", loads neither jax nor ray_tpu and
               launches no flash kernel. Serve is shut down after it.
-12. trainer — TorchTrainer(num_workers=1), NCCL at world size 1: the train
+12. serve_disagg — build_disagg_deployment through serve.run on that
+              runtime: one replica (no card of its own) fronting one prefill
+              and two decode workers, actors leasing a third of the card
+              each and drawing their own seed-0 weights there; KV pages move
+              between them as refs into the shm arena. At 2 layers, float32,
+              full width, the 6 serving prompts through a handle and through
+              handle.stream give the in-process aggregated engine's tokens
+              exactly. At 32 layers, bf16: the 6 prompts and 8 prompts
+              sharing a 256-token prefix, concurrently with prefix_hint
+              routing: TTFT, tokens/s, ship and adopt GB/s; each completion
+              in range, 0 duplicate prefills, a cache hit on over half of
+              the shared-prefix requests, kv_array_bytes > 50 x
+              kv_driver_bytes; each pool worker sees CUDA_VISIBLE_DEVICES
+              "0", holds its weights on cuda:0 and loads neither jax nor
+              ray_tpu. Serve is shut down after it.
+13. trainer — TorchTrainer(num_workers=1), NCCL at world size 1: the train
               phase's step (8 layers, B=2, T=2048, bf16, remat, AdamW 1e-4)
               in a TrainWorker actor of the runtime, its card pinned by the
               placement group's lease, params placed by shard_pytree on the
@@ -134,20 +151,20 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               the train phase's (within 1e-6 relative; printed whether
               exactly), the loss finite and falling; the seconds from fit()
               to the first report.
-13. trainer_checkpoint — 2 layers at full width: fit 1 runs 4 steps and
+14. trainer_checkpoint — 2 layers at full width: fit 1 runs 4 steps and
               saves params and AdamW state at step 2 (Checkpoint.
               from_state_dict), fit 2 resumes from it and runs steps 3-4,
               whose losses must equal fit 1's within 1e-6 relative (printed:
               whether exactly); the bytes and the save and load GB/s.
-14. trainer_dp2 — two worker actors sharing the card (GPU 0.5 each, gloo)
+15. trainer_dp2 — two worker actors sharing the card (GPU 0.5 each, gloo)
               take one float32 step at MeshSpec(dp=2) (d_model 1024, 2 layers, B=4,
               T=2048, so the float32 kernels run in both); loss within 1e-5
               (relative) and every updated leaf within 1e-4 of the one-
               process step on the whole batch, and a collective.allreduce of
               numpy giving the sum on both ranks.
-15. dryrun  — ray_tpu_torch.entry.dryrun_multichip(1): NCCL at world size 1,
+16. dryrun  — ray_tpu_torch.entry.dryrun_multichip(1): NCCL at world size 1,
               then the trainer arm's two workers and the sharded arm.
-16. rllib_parity — ray_tpu_torch.rllib on the card, float32, TF32 off: one
+17. rllib_parity — ray_tpu_torch.rllib on the card, float32, TF32 off: one
               update of each of PPO (minibatches 1), IMPALA, APPO, DQN, SAC,
               BC and CQL from weights drawn once and a fixed batch, against
               the same update on the CPU, each leaf's max error over its
@@ -157,17 +174,17 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               gradients into whole steps); ms per float32 update on the card
               and on the host CPU. The port's CartPole-v1, 2000 random-action
               steps of 8 envs, twice from one seed, must give equal bytes.
-17. rllib_ppo — PPO on the port's CartPole-v1 at test_ppo_learns_cartpole's
+18. rllib_ppo — PPO on the port's CartPole-v1 at test_ppo_learns_cartpole's
               settings (2 runners x 4 envs x 128 steps, lr 1e-3, 4 epochs x
               4 minibatches, hidden 64), 8 iterations: best mean return >
               max(60, 1.5 x first), params on cuda; per iteration sample ms,
               update ms and env steps/s.
-18. rllib_offpolicy — DQN, IMPALA, APPO and SAC at their JAX tests'
+19. rllib_offpolicy — DQN, IMPALA, APPO and SAC at their JAX tests'
               settings and iteration counts, each held to its test's bar,
               and the two-agent runner (TwoAgentTag) with per-policy PPO.
-19. rllib_offline — collect_rollouts -> OfflineData -> BC (agreement with
+20. rllib_offline — collect_rollouts -> OfflineData -> BC (agreement with
               the expert > 0.8) and CQL (prefers the logged action on > 0.9).
-20. rllib_learners — two Learner ranks in two processes sharing the card
+21. rllib_learners — two Learner ranks in two processes sharing the card
               over gloo, one with an empty shard: equal params and Adam
               moments after the sync (the mean of the update and the initial
               state), step counts 16 and 0.
@@ -1245,8 +1262,10 @@ def check_shipped_pages(cfg, params, prompts, kv_dtypes) -> list:
     """Admit ``prompts`` into an engine per kv_dtype, export every live
     request's pages and hold each shipped page, and each adopted stack,
     against the pool rows bit for bit. Returns one row per kv_dtype."""
+    import numpy as np
     import torch
 
+    import ray_tpu_torch as rt
     from ray_tpu_torch.llm.disagg import adopt_pages
     from ray_tpu_torch.llm.disagg.kv_plane import _from_host
 
@@ -1264,7 +1283,8 @@ def check_shipped_pages(cfg, params, prompts, kv_dtypes) -> list:
                     got = stack[name] if name else stack
                     same = same and torch.equal(got, want)
                     for i in range(len(pg)):
-                        arr = m.pages[i].refs[side if not name else f"{side}.{name}"]
+                        ref = m.pages[i].refs[side if not name else f"{side}.{name}"]
+                        arr = np.array(rt.get(ref))  # the sealed bytes
                         same = same and torch.equal(_from_host(arr), want[:, i])
             n += len(pg)
         del eng
@@ -1391,32 +1411,40 @@ def phase_serving_disagg(card: str, kernels, cfg, params, cfg32, params32, promp
             await dw.stop()
         return full, via_cache, agg, row
 
-    kernels.LAUNCHES.clear()  # the bf16 disagg runs start here
-    full, cached, agg, row = asyncio.run(run(cfg, params, True))
-    launches = dict(kernels.launches())
-    check_completions("serving_disagg", prompts, full + cached, cfg, max_tokens)
-    emit({"phase": "serving_disagg", "layers": cfg.n_layers, "dtype": cfg.dtype,
-          "prompt_lens": [len(q) for q in prompts], **row,
-          "aggregated_ttft_ms": agg_ttft,
-          "agreement_full_vs_aggregated": agreement(full, agg),
-          "agreement_cached_vs_aggregated": agreement(cached, agg), "card": card})
-    pages = check_shipped_pages(cfg, params, prompts, [None])
+    import ray_tpu_torch as rt
 
-    full32, cached32, agg32, row32 = asyncio.run(run(cfg32, params32, False))
-    pages += check_shipped_pages(cfg32, params32, prompts, [None, "bf16", "int8"])
-    same = {"full": [o == r for o, r in zip(full32, ref32)],
-            "cached": [o == r for o, r in zip(cached32, ref32)],
-            "source": [o == r for o, r in zip(agg32, ref32)]}
-    emit({"phase": "serving_disagg_f32", "layers": 2, "equal_to_aggregated": same,
-          "cache": row32["cache"], "shipped_pages": pages})
-    if not all(all(v) for v in same.values()):
-        raise AssertionError(f"f32 disagg differs from the aggregated engine: {same}")
-    if not all(r["bit_exact"] for r in pages):
-        raise AssertionError(f"shipped pages differ from their pool rows: {pages}")
-    if row32["cache"]["hits"] < len(prompts) - 1 or row32["free_staging_pages"] != 511:
-        raise AssertionError(f"cache leg: {row32['cache']}, staging pages free "
-                             f"{row32['free_staging_pages']}")
-    return launches
+    # the KV-page plane seals every page into the runtime's shm arena: the
+    # runtime lives for this phase (phase runtime starts its own later)
+    rt.init(object_store_memory=RUNTIME_STORE_BYTES)
+    try:
+        kernels.LAUNCHES.clear()  # the bf16 disagg runs start here
+        full, cached, agg, row = asyncio.run(run(cfg, params, True))
+        launches = dict(kernels.launches())
+        check_completions("serving_disagg", prompts, full + cached, cfg, max_tokens)
+        emit({"phase": "serving_disagg", "layers": cfg.n_layers, "dtype": cfg.dtype,
+              "prompt_lens": [len(q) for q in prompts], **row,
+              "aggregated_ttft_ms": agg_ttft,
+              "agreement_full_vs_aggregated": agreement(full, agg),
+              "agreement_cached_vs_aggregated": agreement(cached, agg), "card": card})
+        pages = check_shipped_pages(cfg, params, prompts, [None])
+
+        full32, cached32, agg32, row32 = asyncio.run(run(cfg32, params32, False))
+        pages += check_shipped_pages(cfg32, params32, prompts, [None, "bf16", "int8"])
+        same = {"full": [o == r for o, r in zip(full32, ref32)],
+                "cached": [o == r for o, r in zip(cached32, ref32)],
+                "source": [o == r for o, r in zip(agg32, ref32)]}
+        emit({"phase": "serving_disagg_f32", "layers": 2, "equal_to_aggregated": same,
+              "cache": row32["cache"], "shipped_pages": pages})
+        if not all(all(v) for v in same.values()):
+            raise AssertionError(f"f32 disagg differs from the aggregated engine: {same}")
+        if not all(r["bit_exact"] for r in pages):
+            raise AssertionError(f"shipped pages differ from their pool rows: {pages}")
+        if row32["cache"]["hits"] < len(prompts) - 1 or row32["free_staging_pages"] != 511:
+            raise AssertionError(f"cache leg: {row32['cache']}, staging pages free "
+                                 f"{row32['free_staging_pages']}")
+    finally:
+        rt.shutdown()
+    return launches, row["decode_tokens_per_s"]
 
 
 def profile_step(fn, card: str) -> dict:
@@ -2210,11 +2238,13 @@ def _llm_probe_class():
     return ProbedLLMServer
 
 
-def _probed(app):
+def _probed(app, probe_cls):
+    """``app`` with its deployment's class replaced by ``probe_cls`` (a
+    subclass of it), config and arguments unchanged."""
     from ray_tpu_torch.serve import Application, Deployment
 
     dep = app.deployment
-    return Application(Deployment(_llm_probe_class(), dep.name, dep.config), app.init_args,
+    return Application(Deployment(probe_cls, dep.name, dep.config), app.init_args,
                        app.init_kwargs)
 
 
@@ -2230,7 +2260,8 @@ def phase_serve_run(card: str, inproc: dict) -> dict:
     engine's; the first starts the replica's engine loop).
     serve.status() shows each replica RUNNING with GPU 1, and its worker
     sees CUDA_VISIBLE_DEVICES "0" and loads neither jax nor ray_tpu.
-    Serve is shut down at the end. Returns the replicas' flash launches."""
+    Serve is shut down at the end. Returns the replicas' flash launches and
+    the 32-layer LLMServer's tokens/s through the handle."""
     import torch
 
     import ray_tpu_torch as rt
@@ -2248,7 +2279,8 @@ def phase_serve_run(card: str, inproc: dict) -> dict:
         return rep
 
     def run(app_name, cfg, temps_):
-        app = _probed(build_llm_deployment(cfg, num_gpus=1, max_batch_size=8))
+        app = _probed(build_llm_deployment(cfg, num_gpus=1, max_batch_size=8),
+                      _llm_probe_class())
         t0 = time.perf_counter()
         handle = serve.run(app, name=app_name)
         start_s = time.perf_counter() - t0
@@ -2346,6 +2378,214 @@ def phase_serve_run(card: str, inproc: dict) -> dict:
         raise AssertionError(f"stream_deltas through the handle: {deltas[-1:]}, {len(toks)}")
     if erep["state"] != "RUNNING" or erep["resources"].get("GPU") != 1.0:
         raise AssertionError(f"engine replica {erep}")
+    return dict(launches), len(res) * max_tokens / wall
+
+
+# -------------------------------------------------------------- serve_disagg
+SHARED_PREFIX = 256  # tokens the shared-prefix requests have in common
+SHARED_SUFFIX = 32   # tokens each of them adds
+N_SHARED = 8
+
+
+def _disagg_probe_class():
+    """DisaggLLMServer whose pool workers have one method more, ``probe``
+    (what the worker sees: its card, its weights' device and dtype, the
+    modules it loaded, its flash launches), and a replica method that
+    probes every pool worker. build_disagg_deployment's config and
+    arguments stay as they are."""
+    from ray_tpu_torch.llm.disagg import DecodeWorker, DisaggLLMServer, PrefillWorker
+
+    def probe(self):
+        import torch
+
+        from ray_tpu_torch import kernels
+
+        params = self.params if isinstance(self, PrefillWorker) else self.engine.params
+        leaf = params["tok"]["embedding"]
+        return {"role": type(self).__name__, "pid": os.getpid(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "count": torch.cuda.device_count(), "weights_device": str(leaf.device),
+                "weights_dtype": str(leaf.dtype).removeprefix("torch."),
+                "foreign": _foreign_modules(), "launches": dict(kernels.launches())}
+
+    class ProbedPrefillWorker(PrefillWorker):
+        pass
+
+    class ProbedDecodeWorker(DecodeWorker):
+        pass
+
+    ProbedPrefillWorker.probe = ProbedDecodeWorker.probe = probe
+
+    class ProbedDisaggLLMServer(DisaggLLMServer):
+        prefill_worker_cls = ProbedPrefillWorker
+        decode_worker_cls = ProbedDecodeWorker
+
+        async def probe(self):
+            return await asyncio.gather(*[self._pool_call(w, "probe", (), {})
+                                          for w in (*self.prefill_pool, *self.decode_pool)])
+
+    return ProbedDisaggLLMServer
+
+
+def phase_serve_disagg(card: str, prompts: list, readings: dict) -> dict:
+    """build_disagg_deployment through serve.run on the runtime of phase
+    runtime: one replica (it holds no card) fronting one prefill and two
+    decode workers, each an actor leasing a third of the card and drawing
+    its own seed-0 weights there. At 2 layers, float32, full width: the 6
+    serving prompts, greedy, 32 tokens, through a handle and then through
+    handle.stream (the second pass hits the prefix cache) give exactly the
+    tokens of an in-process aggregated engine on the same weights. At 32
+    layers, bf16: one warm-up request with the shared 256-token prefix,
+    then the 6 prompts and 8 shared-prefix prompts (distinct 32-token
+    suffixes) concurrently with routing_hint=prefix_hint(...): TTFT per
+    request, wall time, tokens/s, the ship and adopt ms, bytes and GB/s
+    and the prefix cache from stats(). Each pool worker must see
+    CUDA_VISIBLE_DEVICES "0", hold its weights on cuda:0 in the model's
+    dtype and load neither jax nor ray_tpu; every completion must be in
+    range, with 0 duplicate prefills, a hit on more than half of the
+    shared-prefix requests and kv_array_bytes > 50 x kv_driver_bytes.
+    Serve is shut down at the end. Returns the pool workers' flash
+    launches."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve as serve_lib
+    from ray_tpu_torch.llm.disagg import build_disagg_deployment, prefix_hint
+    from ray_tpu_torch.llm.serving import resolve_params
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    max_tokens, PS = 32, 16
+    kw = dict(n_prefill=1, n_decode=2, max_batch=4, page_size=PS, n_pages=512,
+              max_seq_len=2048, prefix_cache_bytes=4 << 30)
+    launches: collections.Counter = collections.Counter()
+
+    def start(app_name, cfg):
+        # num_gpus=0: the scheduler runs no model; each pool worker leases
+        # 1/3 of the card (build_disagg_deployment's default on the card)
+        app = _probed(build_disagg_deployment(cfg, num_gpus=0, **kw),
+                      _disagg_probe_class())
+        t0 = time.perf_counter()
+        handle = serve_lib.run(app, name=app_name)
+        return handle, time.perf_counter() - t0
+
+    def check_workers(name, probes, dtype):
+        roles = sorted(p["role"] for p in probes)
+        if roles != ["ProbedDecodeWorker", "ProbedDecodeWorker", "ProbedPrefillWorker"]:
+            raise AssertionError(f"{name} pool workers: {roles}")
+        for p in probes:
+            if (p["visible"] != "0" or p["count"] != 1 or p["foreign"]
+                    or p["weights_device"] != "cuda:0" or p["weights_dtype"] != dtype):
+                raise AssertionError(f"{name} pool worker: {p}")
+            launches.update(p["launches"])
+
+    def stop(app_name, handle):
+        rt.get(handle.shutdown.remote(), timeout=120)  # the pools' leases go now
+        serve_lib.delete(app_name)
+
+    # 2 layers, float32, full width: token identity with the aggregated engine
+    cfg32 = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2, dtype="float32")
+    handle, start32 = start("serve_disagg_f32", cfg32)
+    reqs = [{"prompt_tokens": q, "max_tokens": max_tokens} for q in prompts]
+    t0 = time.perf_counter()
+    got = [r["completion_tokens"] for r in rt.get([handle.remote(r) for r in reqs],
+                                                   timeout=900)]
+    first_call_s = time.perf_counter() - t0
+    streamed, stream_cached = [], []
+    for r in reqs:
+        deltas = list(handle.stream.stream_chunks(dict(r)))
+        streamed.append([t for d in deltas for t in d["tokens"]])
+        stream_cached.append(deltas[-1]["usage"]["cached_prefix_tokens"]
+                             if deltas and deltas[-1].get("done") else None)
+    probes32 = rt.get(handle.probe.remote(), timeout=120)
+    stats32 = rt.get(handle.stats.remote(), timeout=120)
+    stop("serve_disagg_f32", handle)
+    params32 = resolve_params(cfg32, device="cuda")  # the same seed-0 weights, here
+    want, _, _, _ = serve(params32, cfg32, prompts, max_tokens)
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    equal = {"call": [a == b for a, b in zip(got, want)],
+             "stream": [a == b for a, b in zip(streamed, want)]}
+    check_workers("float32", probes32, "float32")
+
+    # 32 layers, bf16: the serving prompts and the shared-prefix set together
+    cfg = LlamaConfig.llama3_8b()
+    rng = np.random.default_rng(SEED + 13)
+    shared = rng.integers(0, cfg.vocab_size, size=SHARED_PREFIX).tolist()
+    suffixes = rng.integers(0, cfg.vocab_size, size=(N_SHARED + 1, SHARED_SUFFIX)).tolist()
+    group = [shared + sfx for sfx in suffixes]
+    handle, start_s = start("serve_disagg", cfg)
+
+    def ask(qs):
+        refs = [handle.options(routing_hint=prefix_hint(q, page_size=PS)).remote(
+            {"prompt_tokens": q, "max_tokens": max_tokens}) for q in qs]
+        return rt.get(refs, timeout=900)
+
+    t0 = time.perf_counter()
+    warm = ask(group[-1:])  # starts the pools' CUDA contexts, caches the prefix
+    warm_s = time.perf_counter() - t0
+    before = rt.get(handle.stats.remote(), timeout=120)
+    mixed = prompts + group[:N_SHARED]
+    t0 = time.perf_counter()
+    res = ask(mixed)
+    wall = time.perf_counter() - t0
+    after = rt.get(handle.stats.remote(), timeout=120)
+    probes = rt.get(handle.probe.remote(), timeout=120)
+    stop("serve_disagg", handle)
+    serve_lib.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    outs = [r["completion_tokens"] for r in res]
+    kv0, kv1 = before["kv_plane"], after["kv_plane"]
+
+    def delta(key):
+        return kv1.get(key, 0) - kv0.get(key, 0)
+
+    ships = delta("prefills") + delta("suffix_prefills")
+    shared_hits = [r["usage"]["cached_prefix_tokens"] > 0 for r in res[len(prompts):]]
+    n_tok = sum(len(o) for o in outs)
+    emit({"phase": "serve_disagg", "f32_layers": 2, "f32_equal": equal,
+          "f32_stream_cached_prefix_tokens": stream_cached, "f32_replica_start_s": start32,
+          "f32_first_call_s": first_call_s, "f32_workers": probes32,
+          "f32_duplicate_prefills": stats32["duplicate_prefills"],
+          "layers": cfg.n_layers, "dtype": cfg.dtype, "pool": kw,
+          "prompt_lens": [len(q) for q in mixed], "replica_start_s": start_s,
+          "warmup_s": warm_s, "warmup_ttft_s": warm[0]["usage"]["ttft_s"],
+          "requests": len(res), "wall_s": wall, "tokens_per_s": n_tok / wall,
+          "ttft_s": [r["usage"]["ttft_s"] for r in res],
+          "latency_s": [r["usage"]["latency_s"] for r in res],
+          "cached_prefix_tokens": [r["usage"]["cached_prefix_tokens"] for r in res],
+          "decode_worker": [r["usage"]["decode_worker"] for r in res],
+          "shared_hit_rate": sum(shared_hits) / len(shared_hits),
+          "ships": ships, "ship_ms": delta("ship_ns") / 1e6 / max(1, ships),
+          "ship_bytes": delta("ship_bytes"),
+          "ship_gb_per_s": delta("ship_bytes") / max(1, delta("ship_ns")),
+          "adoptions": delta("adoptions"),
+          "adopt_ms": delta("adopt_ns") / 1e6 / max(1, delta("adoptions")),
+          "adopt_bytes": delta("adopt_bytes"),
+          "adopt_gb_per_s": delta("adopt_bytes") / max(1, delta("adopt_ns")),
+          "kv_array_bytes": kv1["kv_array_bytes"], "kv_driver_bytes": kv1["kv_driver_bytes"],
+          "kv_plane": kv1, "prefix_cache": after["prefix_cache"],
+          "duplicate_prefills": after["duplicate_prefills"],
+          "decode_retries": after["decode_retries"], "backpressured": after["backpressured"],
+          "decode_tokens": after["decode_tokens"], "workers": probes,
+          "serve_run_handle_tokens_per_s": readings["serve_run_handle_tokens_per_s"],
+          "serving_disagg_decode_tokens_per_s": readings["serving_disagg_decode_tokens_per_s"],
+          "pool_flash_launches": dict(launches), "card": card})
+    if not all(all(v) for v in equal.values()):
+        raise AssertionError(f"float32 disagg through serve differs from the engine: {equal}")
+    check_completions("serve_disagg", mixed, outs, cfg, max_tokens)
+    check_workers("bf16", probes, "bfloat16")
+    if after["duplicate_prefills"] != 0 or stats32["duplicate_prefills"] != 0:
+        raise AssertionError(f"duplicate prefills: {after['duplicate_prefills']}, "
+                             f"{stats32['duplicate_prefills']} (float32)")
+    if not sum(shared_hits) / len(shared_hits) > 0.5:
+        raise AssertionError(f"shared-prefix hits {shared_hits}")
+    if not kv1["kv_array_bytes"] > 50 * kv1["kv_driver_bytes"]:
+        raise AssertionError(f"kv bytes: array {kv1['kv_array_bytes']}, "
+                             f"RPC {kv1['kv_driver_bytes']}")
     return dict(launches)
 
 
@@ -3288,8 +3528,8 @@ def main() -> int:
     phase_serving_adopt(card, cfg, params, cfg32, params32, prompts)
     layer_launches, inproc = phase_serving_server(card, kernels, cfg, params, cfg32,
                                                   params32, prompts, ref32)
-    disagg_launches = phase_serving_disagg(card, kernels, cfg, params, cfg32, params32,
-                                           prompts, ref32, planned_ttft)
+    disagg_launches, disagg_tokens_per_s = phase_serving_disagg(
+        card, kernels, cfg, params, cfg32, params32, prompts, ref32, planned_ttft)
     del params, params32, tokens
     # LLMServer (its batch queue holds its bound method) and PrefillWorker
     # sit in reference cycles that hold the weights until a collection
@@ -3305,7 +3545,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_runtime(card)
     sharded_launches = phase_sharded(card)
-    serve_launches_replicas = phase_serve_run(card, inproc)
+    serve_launches_replicas, handle_tokens_per_s = phase_serve_run(card, inproc)
+    serve_disagg_launches = phase_serve_disagg(
+        card, prompts, {"serve_run_handle_tokens_per_s": handle_tokens_per_s,
+                        "serving_disagg_decode_tokens_per_s": disagg_tokens_per_s})
     # the trainer's worker actors take the card from here
     trainer_launches = phase_trainer(card, train_losses)
     phase_trainer_checkpoint(card)
@@ -3346,6 +3589,7 @@ def main() -> int:
                "moe_train_launches_per_step": moe_step_launches[name],
                "sharded_launches": sharded_launches.get(name, 0),
                "serve_run_launches": serve_launches_replicas.get(name, 0),
+               "serve_disagg_launches": serve_disagg_launches.get(name, 0),
                "rllib_launches": rl_launches[name], **k[name]}
         if name != "flash_attention_fwd":
             row["plain_and_library_cover"] = "dq+dkv"

@@ -33,7 +33,8 @@ trace.
 
 Config: ``RT_CHAOS_ENABLED`` / ``RT_CHAOS_PLAN`` /
 ``RT_CHAOS_SEED`` / ``RT_CHAOS_LOG_DIR``, serialized to every spawned
-process like the rest of the flag table.
+process like the rest of the flag table; ``cli.read_events(log_dir)``
+merges every process's log.
 """
 
 from __future__ import annotations

@@ -9,8 +9,8 @@
 - serving: LLMServer (serve.batch coalescing) and LLMEngineServer
   (continuous batching + streaming)
 - batch: build_llm_processor over ray_tpu_torch.data datasets
-- disagg: prefill/decode workers over the KV-page plane, with a
-  cross-request prefix cache
+- disagg: disaggregated serving, prefill/decode pools over the KV-page
+  plane with a cross-request prefix cache (DisaggLLMServer)
 """
 from ray_tpu_torch.llm.engine import ContinuousBatchingEngine, EngineFull
 from ray_tpu_torch.llm.generation import generate, generate_tokens, pad_prompts
@@ -23,21 +23,25 @@ from ray_tpu_torch.llm.serving import (
 from ray_tpu_torch.llm.batch import build_llm_processor
 from ray_tpu_torch.llm.disagg import (
     DecodeWorker,
+    DisaggLLMServer,
     KVPageManifest,
     PrefillWorker,
     PrefixCache,
+    build_disagg_deployment,
     prefix_hint,
 )
 
 __all__ = [
     "ContinuousBatchingEngine",
     "DecodeWorker",
+    "DisaggLLMServer",
     "EngineFull",
     "KVPageManifest",
     "LLMEngineServer",
     "LLMServer",
     "PrefillWorker",
     "PrefixCache",
+    "build_disagg_deployment",
     "build_llm_deployment",
     "build_llm_engine_deployment",
     "build_llm_processor",

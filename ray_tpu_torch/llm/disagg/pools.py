@@ -1,25 +1,32 @@
-"""Prefill/decode workers — the two halves of disaggregated serving.
+"""Prefill/decode worker pools: the two halves of disaggregated serving.
 
-Counterpart of ``ray_tpu/llm/disagg/pools.py``, in one process. Prefill is
-a throughput-bound batch of products, decode a latency-bound loop over
+Counterpart of ``ray_tpu/llm/disagg/pools.py``. Prefill is a
+throughput-bound batch of products, decode a latency-bound loop over
 memory; run together, each becomes the other's tail (DistServe, Zhong et
 al., OSDI'24). Here the two phases run in separate workers joined only by
-the KV-page plane:
+the KV-page plane. The scheduler (scheduler.py) runs each as an async
+actor of the port's runtime and awaits its methods; the classes also work
+as plain objects on one event loop.
 
 - :class:`PrefillWorker` owns a staging paged pool. Concurrent ``prefill``
   calls accumulate into padded waves (one ``paged_prefill_batch`` dispatch
   per pad bucket, the engine's own admission-wave shape, run standalone);
-  each prompt's pages are then copied to host memory (:func:`ship_pages`)
-  and the pool rows are freed at once. A ``prefix`` manifest switches the
-  call onto ``paged_prefill_suffix``: the cached prefix pages are scattered
-  into the staging pool as they are and only the suffix runs through the
-  model.
+  each prompt's pages are then sealed into the local shm arena
+  (:func:`ship_pages`) and the pool rows are freed at once: the pool is a
+  staging buffer, the arena is the KV's home. A ``prefix`` manifest
+  switches the call onto ``paged_prefill_suffix``: the cached prefix pages
+  are adopted into the staging pool as they are and only the suffix runs
+  through the model.
 - :class:`DecodeWorker` wraps the continuous-batching engine and admits
   requests ONLY with adopted KV (``submit_prefilled``), so its decode
   never runs a prefill.
 
-Both take the model's weights by reference: two workers on one card share
-one copy. Queue-time telemetry: every prefill job records
+A worker builds on ``device``: weights given by value move there, and
+without them it draws its own seed-0 weights there (``resolve_params``).
+``device=None`` keeps given weights where they lie and draws missing ones
+on the card; the scheduler passes the card explicitly unless told
+``device="cpu"``, and asking for the card without a CUDA device raises.
+Queue-time telemetry: every prefill job records
 ``prefill_queue`` (enqueue -> wave dispatch), every adopted request
 ``decode_queue`` (submit -> first token); ``kv_ship`` is recorded by the
 plane.
@@ -34,15 +41,45 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ray_tpu_torch.accelerators import GPUAcceleratorManager
+from ray_tpu_torch.core.ref import ObjectLostError
+from ray_tpu_torch.devtools import chaos
 from ray_tpu_torch.llm import engine as _engine
 from ray_tpu_torch.llm.disagg import telemetry
 from ray_tpu_torch.llm.disagg.kv_plane import (
     KVPageManifest,
+    KVShipError,
     adopt_pages,
     ship_pages,
 )
 from ray_tpu_torch.llm.serving import resolve_params
 from ray_tpu_torch.serve.exceptions import BackPressureError
+from ray_tpu_torch.utils.device import resolve_device
+
+
+def _worker_params(model_config, params, params_fn, device, gpu_ids):
+    """The weights a pool worker runs: ``resolve_params``'s, moved to
+    ``device`` when one is given (None keeps given weights where they
+    are, and draws missing ones on the card). ``gpu_ids`` names the card
+    of a worker that leases a share of one, which the runtime's lease does
+    not pin: set here, before CUDA's first call in the process, so the
+    worker sees that card as ``cuda:0``."""
+    if gpu_ids is not None:
+        GPUAcceleratorManager.set_current_process_visible_accelerator_ids(gpu_ids)
+    params = resolve_params(model_config, params, params_fn, device)
+    if device is None:
+        return params
+    return _moved(params, resolve_device(device))
+
+
+def _moved(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _moved(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_moved(v, dev) for v in tree)
+    return tree
 
 
 @dataclass
@@ -53,11 +90,16 @@ class _Job:
     prefix: KVPageManifest | None
     fut: asyncio.Future
     t_enq: int = field(default_factory=time.perf_counter_ns)
+    # owning request's (trace_id, span_id), captured ONCE at enqueue: the
+    # wave loop runs outside the request's context, so batch-stamped
+    # telemetry (queue span, page-seal span) carries this instead
+    tctx: tuple | None = None
 
 
 class PrefillWorker:
     """Stateless-per-request prefill worker: prompts in, manifests out.
-    Concurrent calls on one event loop coalesce into one padded wave."""
+    Run as an actor with ``max_concurrency > 1`` (the scheduler does), so
+    concurrent calls coalesce into one padded wave."""
 
     #: wave padding buckets, the engine's shape discipline
     _WAVE_BUCKETS = _engine.ContinuousBatchingEngine._WAVE_BUCKETS
@@ -67,9 +109,10 @@ class PrefillWorker:
                  max_wave: int = 8, wave_wait_s: float = 0.004,
                  kv_dtype: str | None = None,
                  lora_adapters: dict | None = None, lora_rank: int = 8,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, gpu_ids: list | None = None):
         self.cfg = model_config
-        self.params = resolve_params(model_config, params, params_fn, device)
+        self.params = _worker_params(model_config, params, params_fn, device,
+                                     gpu_ids)
         self.device = self.params["tok"]["embedding"].device
         self.PS = page_size
         self.n_pages = n_pages
@@ -132,7 +175,8 @@ class PrefillWorker:
         if self._task is None or self._task.done():
             self._task = loop.create_task(self._wave_loop())
         job = _Job(tokens, float(temperature), aid, prefix,
-                   loop.create_future())
+                   loop.create_future(),
+                   tctx=telemetry.capture_trace_ctx())
         self._pending.append(job)
         self._arrived.set()
         return await job.fut
@@ -143,7 +187,8 @@ class PrefillWorker:
                 "page_size": self.PS, "kv_dtype": self.kv_dtype}
 
     def disagg_counters(self) -> dict:
-        """This process's KV-plane byte/op ledger."""
+        """This process's KV-plane byte/op ledger (the scheduler sums these
+        across the pool)."""
         return telemetry.counters()
 
     # ---------------------------------------------------------- internals
@@ -196,7 +241,8 @@ class PrefillWorker:
         full: dict[int, list[_Job]] = {}
         sfx: dict[tuple[int, int], list[_Job]] = {}
         for job in wave:
-            telemetry.record(telemetry.PREFILL_QUEUE, t_dispatch - job.t_enq)
+            telemetry.record(telemetry.PREFILL_QUEUE,
+                             t_dispatch - job.t_enq, trace_ctx=job.tctx)
             if job.prefix is None:
                 Tp_pad = -(-len(job.tokens) // self.PS) * self.PS
                 full.setdefault(Tp_pad, []).append(job)
@@ -222,7 +268,7 @@ class PrefillWorker:
             try:
                 m = ship_pages(self.kpool, self.vpool, pages_of[j],
                                job.tokens, page_size=self.PS,
-                               kv_dtype=self.kv_dtype)
+                               kv_dtype=self.kv_dtype, trace_ctx=job.tctx)
             except Exception as e:  # noqa: BLE001 — per-job failure
                 job.fut.set_exception(e)
                 continue
@@ -265,9 +311,13 @@ class PrefillWorker:
         self._finish(jobs, first, pages_of)
 
     async def _dispatch_suffix(self, Ts_pad: int, W: int, jobs: list[_Job]):
-        """Suffix wave: scatter each job's cached prefix pages into the
-        staging pool, then run ONLY the suffix through the model. The
-        prefix stacks are built on a pool thread, off the event loop."""
+        """Suffix wave: adopt each job's cached prefix pages into the
+        staging pool (zero-copy out of shm when the cache lives on this
+        node), then run ONLY the suffix through the model.
+
+        Adoption runs off the event loop: with >1 prefill worker a suffix
+        prefix may be sealed by a sibling whose loop is likewise inside a
+        suffix wave, and a blocking fetch here would deadlock both."""
         loop = asyncio.get_running_loop()
         nb = self._bucket(len(jobs))
         toks = np.zeros((nb, Ts_pad), np.int64)
@@ -330,8 +380,9 @@ class DecodeWorker:
                  lora_adapters: dict | None = None, lora_rank: int = 8,
                  max_waiting: int = 256, spec_enable: bool = False,
                  spec_k: int = 4, spec_ngram: int = 2, spec_drafter=None,
-                 device=None):
-        params = resolve_params(model_config, params, params_fn, device)
+                 device=None, gpu_ids: list | None = None):
+        params = _worker_params(model_config, params, params_fn, device,
+                                gpu_ids)
         self.engine = _engine.ContinuousBatchingEngine(
             params, model_config, max_batch=max_batch, page_size=page_size,
             n_pages=n_pages, max_seq_len=max_seq_len, eos_id=eos_id,
@@ -344,13 +395,19 @@ class DecodeWorker:
 
     async def _adopt_submit(self, token_ids, manifest, extra, first_token,
                             max_tokens, temperature, adapter) -> int:
-        """Adopt the pages (stacked on a pool thread, so resident decodes
-        keep running) and submit the request; ``EngineFull`` becomes
-        ``BackPressureError``."""
+        """Adopt the pages (fetched on a pool thread, so resident decodes
+        never stall behind a cross-node page pull) and submit the request;
+        ``EngineFull`` becomes ``BackPressureError``, lost pages
+        ``KVShipError``."""
         await self.engine.start()
         loop = asyncio.get_running_loop()
-        k_stack, v_stack = await loop.run_in_executor(
-            None, adopt_pages, manifest, extra)
+        try:
+            k_stack, v_stack = await loop.run_in_executor(
+                None, adopt_pages, manifest, extra)
+        except ObjectLostError as e:
+            # onto the plane's typed failure (passthrough-marked): the
+            # scheduler re-prefills on it either way
+            raise KVShipError(f"adopt: sealed pages lost: {e}") from None
         try:
             return self.engine.submit_prefilled(
                 [int(t) for t in token_ids], k_stack, v_stack,
@@ -381,6 +438,9 @@ class DecodeWorker:
                 telemetry.record(telemetry.DECODE_QUEUE,
                                  time.perf_counter_ns() - t_submit)
             out.append(tok)
+        # refresh the decode-plane signals (tokens-in-flight gauge, spec
+        # windows) on the way out: every completed request keeps the
+        # scheduler's and the dashboard's numbers fresh
         telemetry.publish_decode_signals(self.engine)
         return out
 
@@ -406,6 +466,8 @@ class DecodeWorker:
         first = True
         try:
             async for blk in self.engine.stream_blocks(rid):
+                if chaos.ENABLED:
+                    chaos.point("llm.decode_block", n_tokens=len(blk))
                 if first:
                     first = False
                     telemetry.record(telemetry.DECODE_QUEUE,

@@ -1,13 +1,19 @@
-"""The port's in-process disaggregated serving against the JAX package, on
-the CPU: ``prefix_hint`` and ``PrefixCache`` (run on both packages'
-caches with the same fake manifests), ``ship_pages``/``adopt_pages``
-round trips for native, bf16 and int8 pools, ``export_pages``, and the
-``PrefillWorker`` -> manifest -> ``DecodeWorker`` path against JAX's
-aggregated engine. Weights are the JAX tiny init carried across; float32.
-No test starts the ray_tpu runtime, and each async case runs under a 60 s
-limit."""
+"""The port's disaggregated serving pieces, driven in process, against the
+JAX package on the CPU: ``prefix_hint`` and ``PrefixCache`` (run on both
+packages' caches with the same fake manifests), ``ship_pages``/
+``adopt_pages`` round trips through the shm arena for native, bf16 and int8
+pools, ``export_pages``, and the ``PrefillWorker`` -> manifest ->
+``DecodeWorker`` path against JAX's aggregated engine. Weights are the JAX
+tiny init carried across; float32. The KV-page plane seals pages into the
+port's runtime's arena, so every test that ships pages takes the
+module-scoped ``rt`` fixture (``ray_tpu_torch.init`` with a small arena);
+the cache and hint tests need none. Each async case runs under a 60 s
+limit.
+"""
 
 import asyncio
+import dataclasses
+import os
 import time
 
 import jax
@@ -15,10 +21,15 @@ import numpy as np
 import pytest
 import torch
 
+import ray_tpu_torch
+from _torch_time_limit import time_limits
+
 from ray_tpu.llm import ContinuousBatchingEngine as JEngine
 from ray_tpu.llm.disagg import kv_plane as jkv
 from ray_tpu.llm.disagg import prefix_cache as jpc
 from ray_tpu.models import llama as jllama
+from ray_tpu_torch import config
+from ray_tpu_torch.core.ref import ObjectRef
 from ray_tpu_torch.llm import ContinuousBatchingEngine
 from ray_tpu_torch.llm import engine as teng
 from ray_tpu_torch.llm.disagg import (
@@ -39,6 +50,33 @@ PS = 8
 PROMPT = list(range(1, 20))  # 19 tokens: 2 full pages + a ragged tail
 PROMPTS = [PROMPT, [7, 8, 9], list(range(40, 66)), [21, 22, 23, 24, 25, 26, 27, 28]]
 MAX_NEW = 8
+
+# slowest case a few seconds alone; the runtime's start and shutdown ~1 s
+_module_limit, _test_limit = time_limits(module_s=60, test_s=60)
+
+
+@pytest.fixture(scope="module")
+def rt():
+    """The port's runtime, whose shm arena the KV-page plane seals into."""
+    saved = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"  # the workers inherit it
+    ray_tpu_torch.shutdown()  # a runtime another module left in this process
+    cfg = config.get_config()
+    config.set_config(dataclasses.replace(cfg, worker_lease_timeout_s=1.0))
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=64 << 20)
+    yield ray_tpu_torch
+    ray_tpu_torch.shutdown()
+    config.set_config(cfg)
+    if saved is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = saved
+
+
+def _fetch(ref) -> np.ndarray:
+    """A sealed page component's bytes, as a writable host array."""
+    assert isinstance(ref, ObjectRef)
+    return np.array(ray_tpu_torch.get(ref))
 
 
 def run(coro):
@@ -209,10 +247,12 @@ def _parts(pool):
 
 
 @pytest.mark.parametrize("kv_dtype", ["native", "bf16", "int8"])
-def test_ship_adopt_round_trip(kv_dtype):
-    """Each shipped page equals its pool row bit for bit; adopted stacks
-    equal the pool's rows and scatter into a fresh pool exactly; the
-    ledger counts the pages and bytes."""
+def test_ship_adopt_round_trip(rt, kv_dtype):
+    """Each shipped page is sealed in the arena as one ref per component,
+    whose bytes equal its pool row bit for bit (bf16 as uint16 bits);
+    adopted stacks equal the pool's rows and scatter into a fresh pool
+    exactly; the ledger counts the pages and bytes, the manifests' RPC
+    bytes apart."""
     telemetry._reset_for_tests()
     kpool, vpool = _filled_pools(None if kv_dtype == "native" else kv_dtype)
     rows = [5, 2, 7]
@@ -220,15 +260,18 @@ def test_ship_adopt_round_trip(kv_dtype):
                    kv_dtype=kv_dtype)
     assert (m.n_pages, m.n_tokens, m.full_pages(), m.kv_dtype) == (3, 19, 2, kv_dtype)
     want_keys = ["k", "v"] if kv_dtype != "int8" else ["k.q", "k.s", "v.q", "v.s"]
+    node = rt.get_core().node_id.binary()
     for i, r in enumerate(rows):
         page = m.pages[i]
-        assert sorted(page.refs) == want_keys and page.node is None
+        assert sorted(page.refs) == want_keys and page.node == node
+        arrs = {key: _fetch(ref) for key, ref in page.refs.items()}
         for side, pool in (("k", kpool), ("v", vpool)):
             for name, t in _parts(pool).items():
-                arr = page.refs[side if not name else f"{side}.{name}"]
-                assert isinstance(arr, np.ndarray)
+                arr = arrs[side if not name else f"{side}.{name}"]
+                assert arr.dtype == (np.uint16 if t.dtype == torch.bfloat16
+                                     else t.numpy().dtype)
                 assert torch.equal(tkv._from_host(arr), t[:, r])
-        assert page.nbytes == sum(a.nbytes for a in page.refs.values())
+        assert page.nbytes == sum(a.nbytes for a in arrs.values())
     k_stack, v_stack = adopt_pages(m.prefix(2), m.prefix(3).prefix(3))
     idx = torch.tensor(rows[:2] + rows)
     fresh_k, fresh_v = _filled_pools(None if kv_dtype == "native" else kv_dtype)
@@ -243,12 +286,13 @@ def test_ship_adopt_round_trip(kv_dtype):
     assert c["pages_shipped"] == 3 and c["pages_adopted"] == 5 and c["adoptions"] == 1
     assert c["kv_array_bytes"] == m.nbytes + m.prefix(2).nbytes + m.nbytes
     assert c["kv_driver_bytes"] == tkv.manifest_nbytes(m) * 2 + tkv.manifest_nbytes(m.prefix(2))
+    assert (c["ship_bytes"], c["adopt_bytes"]) == (m.nbytes, m.prefix(2).nbytes + m.nbytes)
     assert len(telemetry.stage_window(telemetry.KV_SHIP)) == 2
     telemetry.reset_counters()
     assert telemetry.counters()["pages_shipped"] == 0
 
 
-def test_adopt_refuses_a_bad_manifest():
+def test_adopt_refuses_a_bad_manifest(rt):
     kpool, vpool = _filled_pools(None)
     m = ship_pages(kpool, vpool, [1, 2], list(range(16)), page_size=PS)
     del m.pages[1].refs["v"]
@@ -310,7 +354,7 @@ async def _export(params, cfg, prompt, kv_dtype=None):
         await eng.stop()
 
 
-def test_disagg_equals_aggregated(models, aggregated):
+def test_disagg_equals_aggregated(rt, models, aggregated):
     """Both legs, the full prefill and the cached prefix plus a suffix
     prefill, give JAX's aggregated engine's greedy tokens; the staging
     pool gets every page back."""
@@ -329,7 +373,7 @@ def test_disagg_equals_aggregated(models, aggregated):
     assert telemetry.counters()["suffix_prefills"] == len(cached)
 
 
-def test_prefill_wave_coalesces(models, monkeypatch):
+def test_prefill_wave_coalesces(rt, models, monkeypatch):
     """Four concurrent prefills share one padded wave: one
     paged_prefill_batch dispatch, identical first tokens."""
     _, _, cfg, params = models
@@ -350,7 +394,7 @@ def test_prefill_wave_coalesces(models, monkeypatch):
     assert all(m.n_pages == 2 for m, _ in outs) and len(pf.free_pages) == 63
 
 
-def test_failed_dispatch_frees_staging_rows(models, monkeypatch):
+def test_failed_dispatch_frees_staging_rows(rt, models, monkeypatch):
     """A wave whose prefill raises fails its callers and leaks no staging
     row; the next wave runs."""
     _, _, cfg, params = models
@@ -373,7 +417,7 @@ def test_failed_dispatch_frees_staging_rows(models, monkeypatch):
     assert free == 63 and m.n_pages == 3 and len(pf.free_pages) == 63
 
 
-def test_export_pages_then_adopt_continues_the_source(models, aggregated):
+def test_export_pages_then_adopt_continues_the_source(rt, models, aggregated):
     """A live request's exported pages, adopted by a DecodeWorker with its
     first token, continue with the source's greedy tokens; export_pages
     raises KeyError for a request that holds no slot."""
@@ -404,7 +448,7 @@ def test_export_pages_then_adopt_continues_the_source(models, aggregated):
 
 
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
-def test_export_pages_of_quantized_pools_round_trip(models, kv_dtype):
+def test_export_pages_of_quantized_pools_round_trip(rt, models, kv_dtype):
     """An int8 or bf16 engine exports its pool rows exactly, and a decode
     worker with the same kv_dtype adopts them."""
     _, _, cfg, params = models
@@ -436,7 +480,7 @@ def test_export_pages_of_quantized_pools_round_trip(models, kv_dtype):
     for name, t in snap.items():
         key = "k" if not name else f"k.{name}"
         for i in range(3):
-            assert torch.equal(tkv._from_host(m.pages[i].refs[key]), t[:, i])
+            assert torch.equal(tkv._from_host(_fetch(m.pages[i].refs[key])), t[:, i])
     assert got == out
 
 
@@ -454,7 +498,7 @@ class _FullEngine:
         pass
 
 
-def test_decode_worker_backpressure_and_bad_prompt(models):
+def test_decode_worker_backpressure_and_bad_prompt(rt, models):
     """EngineFull -> BackPressureError(retry_after_s=0.05 (1 + waiting)) on
     both decode paths; an empty prompt stays a ValueError."""
     _, _, cfg, params = models
@@ -490,7 +534,7 @@ def test_decode_worker_backpressure_and_bad_prompt(models):
         run(pf.prefill(list(range(60))))
 
 
-def test_decode_stream_cancel_frees_the_slot(models):
+def test_decode_stream_cancel_frees_the_slot(rt, models):
     """cancel_decode by key (or closing the stream) cancels the adopted
     request: its slot and pages come back before the budget is decoded."""
     _, _, cfg, params = models
@@ -516,3 +560,45 @@ def test_decode_stream_cancel_frees_the_slot(models):
     assert first[0] == 5
     assert len(first) + sum(len(b) for b in rest) < 90
     assert stats["free_pages"] == 63 and head["free_slots"] == 2
+
+
+def test_decode_block_chaos_point_and_lost_pages(rt, models, monkeypatch):
+    """The llm.decode_block chaos point fires once per streamed block (an
+    injected error ends the stream typed), and pages whose sealed bytes
+    are gone reach the caller as KVShipError, the scheduler's re-prefill
+    signal."""
+    from ray_tpu_torch.core.ref import ObjectLostError
+    from ray_tpu_torch.devtools import chaos
+    from ray_tpu_torch.llm.disagg import pools
+
+    _, _, cfg, params = models
+    kpool, vpool = teng.make_kv_pools(cfg, PS, 4, None, "cpu")
+    m = ship_pages(kpool, vpool, [1, 2, 3], PROMPT, page_size=PS)
+
+    def lost(*a, **kw):
+        raise ObjectLostError("sealed copy gone")
+
+    async def go():
+        dw = DecodeWorker(cfg, params, **_engine_kw())
+        try:
+            ctrl = chaos.enable(chaos.ChaosPlan(seed=0, rules=[chaos.ChaosRule(
+                point="llm.decode_block", action="error", after=1)]))
+            got = []
+            try:
+                with pytest.raises(chaos.ChaosError):
+                    async for blk in dw.decode_adopted_stream(PROMPT, m, None, 5,
+                                                              max_tokens=MAX_NEW):
+                        got.append(blk)
+            finally:
+                chaos.disable()
+            with monkeypatch.context() as mp:
+                mp.setattr(pools, "adopt_pages", lost)
+                with pytest.raises(KVShipError, match="lost"):
+                    await dw.decode_adopted(PROMPT, m, None, 5, max_tokens=MAX_NEW)
+            return got, ctrl.signature()
+        finally:
+            await dw.stop()
+
+    got, sig = run(go())
+    assert len(got) == 1 and got[0][0] == 5
+    assert [(point, action) for _, point, _, action in sig] == [("llm.decode_block", "error")]

@@ -122,13 +122,16 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
 
 
 def test_llm_exports_match_jax():
-    """ray_tpu_torch.llm exports every name of ray_tpu.llm but the
-    scheduler's two, which ride on the JAX package's actor runtime."""
+    """ray_tpu_torch.llm and ray_tpu_torch.llm.disagg export every name of
+    ray_tpu.llm and ray_tpu.llm.disagg, the scheduler's two included."""
     import ray_tpu.llm as jllm
+    import ray_tpu.llm.disagg as jdisagg
 
     import ray_tpu_torch.llm as tllm
+    import ray_tpu_torch.llm.disagg as tdisagg
 
-    assert set(tllm.__all__) == set(jllm.__all__) - {"DisaggLLMServer",
-                                                     "build_disagg_deployment"}
+    assert set(tllm.__all__) == set(jllm.__all__)
+    assert set(tdisagg.__all__) == set(jdisagg.__all__)
+    assert tllm.DisaggLLMServer is tdisagg.DisaggLLMServer
     assert all(hasattr(tllm, n) for n in tllm.__all__)
     assert tllm.prefix_hint is not None
