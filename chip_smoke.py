@@ -49,10 +49,9 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
    serving_server — the serving layer: LLMEngineServer answers the 6 prompts
               through __call__ and stream_deltas together; LLMServer batches 8
               concurrent requests at two temperatures into one batch and one
-              generate call per temperature; build_llm_processor maps generate
-              over an 8-row dataset in 2 calls. At 2 layers, float32, __call__,
-              stream, stream_deltas, LLMServer and the processor must give the
-              engine's or generate's tokens exactly.
+              generate call per temperature. At 2 layers, float32, __call__,
+              stream, stream_deltas and LLMServer must give the engine's or
+              generate's tokens exactly. (The processor: phase 18.)
    serving_disagg — PrefillWorker -> KV-page manifest -> DecodeWorker for the
               6 prompts, then again through the prefix cache (export_pages of
               live requests, insert, lookup, a suffix prefill, adoption of
@@ -164,7 +163,32 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               numpy giving the sum on both ranks.
 16. dryrun  — ray_tpu_torch.entry.dryrun_multichip(1): NCCL at world size 1,
               then the trainer arm's two workers and the sharded arm.
-17. rllib_parity — ray_tpu_torch.rllib on the card, float32, TF32 off: one
+              Every TorchTrainer group (phases 13-17) meets through the
+              runtime's GCS KV (rank 0 publishes its store's address).
+17. data_trainer — ray_tpu_torch.data feeding TorchTrainer(num_workers=1),
+              NCCL: a from_numpy dataset of the train phase's token rows
+              [2, 2049] (int64) repeated 21 times (42 rows in 7 blocks),
+              streaming_split(1)[0] in train_loop_config, the worker's loop
+              pulling iter_batches(batch_size=2) and running the train
+              phase's step (8 layers, bf16, remat, AdamW 1e-4, weights from
+              its seed) on each: its 21 losses equal the train phase's
+              (within 1e-6 relative), 8/8/8 launches a step read in the
+              worker; rows received, batch bytes, step ms, the wait for each
+              batch, seconds from fit() to the first report and the
+              rendezvous's seconds.
+18. data_batch — build_llm_processor(cfg, params=None, batch_size=8) as the
+              data executor's map tasks on the runtime's task workers, each
+              drawing its own seed-0 weights on the card: at 2 layers,
+              float32, full width, 8 equal-length prompts (one block): every
+              row's completion_tokens equal the driver's generate with the
+              same init; at 32 layers, bf16, those prompts twice (16 rows,
+              2 blocks, 2 generate calls): rows, tokens/s, seconds to the
+              first block, the task workers' pids; then the same map as a
+              callable class on ActorPoolStrategy(size=1): its tokens equal
+              the task run's, one pid on every row; the card's free memory
+              before and after; 0 flash launches in every worker. The
+              runtime is shut down after it.
+19. rllib_parity — ray_tpu_torch.rllib on the card, float32, TF32 off: one
               update of each of PPO (minibatches 1), IMPALA, APPO, DQN, SAC,
               BC and CQL from weights drawn once and a fixed batch, against
               the same update on the CPU, each leaf's max error over its
@@ -174,24 +198,24 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               gradients into whole steps); ms per float32 update on the card
               and on the host CPU. The port's CartPole-v1, 2000 random-action
               steps of 8 envs, twice from one seed, must give equal bytes.
-18. rllib_ppo — PPO on the port's CartPole-v1 at test_ppo_learns_cartpole's
+20. rllib_ppo — PPO on the port's CartPole-v1 at test_ppo_learns_cartpole's
               settings (2 runners x 4 envs x 128 steps, lr 1e-3, 4 epochs x
               4 minibatches, hidden 64), 8 iterations: best mean return >
               max(60, 1.5 x first), params on cuda; per iteration sample ms,
               update ms and env steps/s.
-19. rllib_offpolicy — DQN, IMPALA, APPO and SAC at their JAX tests'
+21. rllib_offpolicy — DQN, IMPALA, APPO and SAC at their JAX tests'
               settings and iteration counts, each held to its test's bar,
               and the two-agent runner (TwoAgentTag) with per-policy PPO.
-20. rllib_offline — collect_rollouts -> OfflineData -> BC (agreement with
+22. rllib_offline — collect_rollouts -> OfflineData -> BC (agreement with
               the expert > 0.8) and CQL (prefers the logged action on > 0.9).
-21. rllib_learners — two Learner ranks in two processes sharing the card
+23. rllib_learners — two Learner ranks in two processes sharing the card
               over gloo, one with an empty shard: equal params and Adam
               moments after the sync (the mean of the update and the initial
               state), step counts 16 and 0.
               Each rllib phase reads the flash kernels' launches: 0.
 
-Then the {"kernels": [...]} line, the card's name and power limit, and as the
-last line {"ok": true, "device": {...}}. Without a CUDA device, or without the
+Then the script's wall seconds, the {"kernels": [...]} line, the card's name
+and power limit, and as the last line {"ok": true, "device": {...}}. Without a CUDA device, or without the
 ray_tpu_torch package beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -1116,19 +1140,18 @@ def phase_serving_server(card: str, kernels, cfg, params, cfg32, params32, promp
     """The serving layer above the engine. LLMEngineServer answers the 6
     prompts (32 new tokens, max_batch 4) through __call__ and
     stream_deltas together; LLMServer takes 8 concurrent requests at two
-    temperatures in one batch (exactly one generate call per temperature);
-    build_llm_processor maps generate over an 8-row dataset in batches of
-    4 (2 calls). 32 layers, bf16: TTFT, tokens/s and deltas per request,
-    as information. 2 layers, float32: __call__, stream and stream_deltas
-    give the aggregated engine's tokens (generate's, phase serving), and
-    LLMServer and the processor give generate's on the same batches.
+    temperatures in one batch (exactly one generate call per temperature).
+    32 layers, bf16: TTFT, tokens/s and deltas per request, as
+    information. 2 layers, float32: __call__, stream and stream_deltas give
+    the aggregated engine's tokens (generate's, phase serving), and
+    LLMServer gives generate's on the same batch. (build_llm_processor maps
+    over the data executor's task workers: phase data_batch.)
     Returns the kernel launches of the bf16 runs, and the bf16 readings
     (with LLMServer's prompts and temperatures) that serve_run repeats
     through a handle."""
     import numpy as np
 
-    from ray_tpu_torch.data import from_items
-    from ray_tpu_torch.llm import LLMEngineServer, LLMServer, build_llm_processor, generate
+    from ray_tpu_torch.llm import LLMEngineServer, LLMServer, generate
 
     max_tokens = 32
     rng = np.random.default_rng(SEED + 5)
@@ -1136,9 +1159,6 @@ def phase_serving_server(card: str, kernels, cfg, params, cfg32, params32, promp
     server_prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
                       for n in (24, 60, 130, 200, 256, 333, 400, 512)]
     temps = [0.0, 0.8] * 4
-    # the processor's rows: ray_tpu.data's numpy batch format needs equal lengths
-    rows = [{"prompt_tokens": rng.integers(0, cfg.vocab_size, size=64).tolist(), "id": i}
-            for i in range(8)]
 
     async def engine_server(c, p, paths):
         """Each prompt through one path; returns ([(tokens, first-item ms,
@@ -1184,12 +1204,6 @@ def phase_serving_server(card: str, kernels, cfg, params, cfg32, params32, promp
             for q, t in zip(server_prompts, temps)])
         return res, time.perf_counter() - t0
 
-    def processor(c, p):
-        t0 = time.perf_counter()
-        out = build_llm_processor(c, params=p, batch_size=4, max_new_tokens=max_tokens)(
-            from_items(rows)).take_all()
-        return out, time.perf_counter() - t0
-
     calls, restore = count_generate_calls()
     try:
         kernels.LAUNCHES.clear()  # the bf16 serving layer's runs start here
@@ -1222,17 +1236,6 @@ def phase_serving_server(card: str, kernels, cfg, params, cfg32, params32, promp
         if not (min(batch_sizes) > 1 and sorted(server_calls) == [4, 4]):
             raise AssertionError(f"LLMServer batches {batch_sizes}, generate calls "
                                  f"{server_calls}; want one batch, one call per temperature")
-        calls.clear()
-        out, wall = processor(cfg, params)
-        proc_calls = list(calls)
-        check_completions("serving_server processor", [r["prompt_tokens"] for r in rows],
-                          [r["completion_tokens"].tolist() for r in out], cfg, max_tokens)
-        emit({"phase": "serving_server", "server": "build_llm_processor",
-              "layers": cfg.n_layers, "dtype": cfg.dtype, "rows": len(out),
-              "batch_size": 4, "generate_calls": proc_calls,
-              "tokens_per_s": len(out) * max_tokens / wall, "wall_s": wall, "card": card})
-        if proc_calls != [4, 4] or [int(r["id"]) for r in out] != list(range(8)):
-            raise AssertionError(f"processor generate calls {proc_calls}")
         launches = dict(kernels.launches())
 
         # float32, 2 layers: token identity
@@ -1245,11 +1248,6 @@ def phase_serving_server(card: str, kernels, cfg, params, cfg32, params32, promp
         want = generate(params32, cfg32, [server_prompts[i] for i in greedy],
                         max_new_tokens=max_tokens)
         same["LLMServer"] = [res[i]["completion_tokens"] == w for i, w in zip(greedy, want)]
-        out, _ = processor(cfg32, params32)
-        want = [t for b in (rows[:4], rows[4:])
-                for t in generate(params32, cfg32, [r["prompt_tokens"] for r in b],
-                                  max_new_tokens=max_tokens)]
-        same["processor"] = [r["completion_tokens"].tolist() == w for r, w in zip(out, want)]
     finally:
         restore()
     emit({"phase": "serving_server_f32", "layers": 2, "equal": same})
@@ -1495,8 +1493,8 @@ def grads(params, cfg, batch, attn_impl):
 
 def phase_train(card: str, kernels, k: dict) -> tuple[dict, list]:
     """make_train_step at Llama-3-8B width cut to 8 layers. Returns the
-    kernel launches of the timed steps and every step's loss (the warm-up
-    and the timed steps)."""
+    kernel launches of the timed steps, every step's loss (the warm-up and
+    the timed steps) and the batch's tokens (numpy, int64)."""
     import statistics
 
     import torch
@@ -1579,6 +1577,7 @@ def phase_train(card: str, kernels, k: dict) -> tuple[dict, list]:
           "flash_kernels_ms": flash_ms, "flash_share": flash_ms / med,
           "name_copies_ms": copy_ms, "name_copy_bytes": copy_bytes, "card": card})
     emit({"phase": "train_profile", **profile})
+    train_tokens = batch["tokens"].cpu().numpy()  # data_trainer streams these rows
     del params, state, opt, step, batch, loss, named
     torch.cuda.empty_cache()
 
@@ -1597,7 +1596,7 @@ def phase_train(card: str, kernels, k: dict) -> tuple[dict, list]:
           "tol": 1e-3})
     if not worst <= 1e-3:
         raise AssertionError(f"f32 gradients disagree with plain attention: {worst}")
-    return launches, losses
+    return launches, losses, train_tokens
 
 
 class Routing:
@@ -2916,6 +2915,262 @@ def phase_dryrun(card: str) -> None:
           "card": card})
 
 
+# --------------------------------------------------------------------- data
+DATA_BLOCKS = 7  # blocks of the data_trainer dataset
+DATA_MAX_TOKENS = 32  # data_batch: new tokens a row
+
+
+def data_trainer_loop(config):
+    """The train phase's step (8 layers, bf16, remat, AdamW lr 1e-4, weights
+    drawn from the train phase's seed) on each batch this rank pulls from
+    its streaming_split iterator; the flash launches of each step, the
+    wait for each batch and the group's rendezvous seconds, read here, in
+    the worker."""
+    import torch
+
+    from ray_tpu_torch import collective, kernels, train
+    from ray_tpu_torch.models.llama import AdamW, LlamaConfig, llama_init, make_train_step
+
+    _no_tf32()
+    ctx = train.get_context()
+    it = config["splits"][ctx.get_world_rank()]
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=config["layers"])
+    params = llama_init(torch.Generator(device="cuda").manual_seed(config["seed"]), cfg, "cuda")
+    opt = AdamW(1e-4)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    losses, step_ms, wait_ms, per_step, batch_bytes, rows = [], [], [], [], [], 0
+    kernels.LAUNCHES.clear()
+    batches = iter(it.iter_batches(batch_size=2))
+    while True:
+        t0 = time.perf_counter()
+        try:
+            batch = next(batches)["data"]
+        except StopIteration:
+            break
+        tokens = torch.from_numpy(batch).cuda()
+        wait_ms.append((time.perf_counter() - t0) * 1e3)
+        rows += batch.shape[0]
+        batch_bytes.append(batch.nbytes)
+        before = kernels.launches()
+        (params, state, loss), ms = timed(lambda: step(params, state, {"tokens": tokens}))
+        now = kernels.launches()
+        per_step.append({n: now[n] - before[n] for n in kernels.KERNELS})
+        losses.append(float(loss))
+        step_ms.append(ms)
+        if len(losses) == 1:
+            train.report({"step": 1, "loss": losses[0], "t": time.time()})
+    group = collective.get_group_handle(ctx.collective_group)
+    train.report({"losses": losses, "step_ms": step_ms, "batch_wait_ms": wait_ms,
+                  "launches_per_step": per_step, "launches": dict(kernels.launches()),
+                  "rows": rows, "batch_bytes": batch_bytes, "dtype": str(batch.dtype),
+                  "rendezvous_s": group.rendezvous_s,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "device": torch.cuda.get_device_name(0)})
+
+
+def phase_data_trainer(card: str, train_losses: list, train_tokens) -> dict:
+    """ray_tpu_torch.data feeding a TorchTrainer: the train phase's batch
+    repeated once per train phase step (warm-up and timed), streamed to one
+    NCCL worker through streaming_split(1); its losses must follow the train
+    phase's step by step (exactly, or within 1e-6 relative; printed which),
+    8/8/8 launches each step. Returns the worker's launches."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    import ray_tpu_torch.data as rtd
+
+    rows = np.tile(train_tokens, (len(train_losses), 1))  # int64 [42, 2049]
+    ds = rtd.from_numpy(rows, parallelism=DATA_BLOCKS)
+    splits = ds.streaming_split(1)
+    with tempfile.TemporaryDirectory() as tmp:
+        result, t0 = _fit(data_trainer_loop, {"layers": 8, "seed": SEED + 2, "splits": splits},
+                          tmp, num_workers=1)
+    first, final = result.metrics_history[0], result.metrics_history[-1]
+    losses, step_ms = final["losses"], final["step_ms"]
+    pairs = list(zip(losses, train_losses))
+    rel = max(abs(a - b) / abs(b) for a, b in pairs)
+    want = {n: 8 for n in final["launches"]}
+    emit({"phase": "data_trainer", "workers": 1, "backend": "nccl", "layers": 8,
+          "dataset": {"rows": list(rows.shape), "dtype": str(rows.dtype), "blocks": DATA_BLOCKS,
+                      "bytes": rows.nbytes},
+          "rows_received": final["rows"], "batch_bytes": final["batch_bytes"][0],
+          "batch_bytes_against_dataset": final["batch_bytes"][0] / rows.nbytes,
+          "batches": len(final["batch_bytes"]), "batch_dtype": final["dtype"],
+          "losses": losses, "train_phase_losses": train_losses, "steps_compared": len(pairs),
+          "trajectory_exact": rel == 0.0, "trajectory_max_rel_diff": rel,
+          "trajectory_tol": 1e-6, "step_ms": step_ms,
+          "step_ms_median": statistics.median(step_ms[1:]),
+          "batch_wait_ms": final["batch_wait_ms"],
+          "batch_wait_ms_median": statistics.median(final["batch_wait_ms"]),
+          "launches_per_step": final["launches_per_step"][0],
+          "seconds_fit_to_first_report": first["t"] - t0,
+          "rendezvous_s": final["rendezvous_s"],
+          "max_memory_allocated": final["max_memory_allocated"],
+          "worker_device": final["device"], "card": card})
+    if final["rows"] != rows.shape[0] or final["dtype"] != "int64":
+        raise AssertionError(f"the worker got {final['rows']} {final['dtype']} rows of "
+                             f"{rows.shape[0]}")
+    if any(c != want for c in final["launches_per_step"]) or len(want) != 3:
+        raise AssertionError(f"data_trainer kernel launches {final['launches_per_step']}")
+    if len(pairs) != len(train_losses) or not rel <= 1e-6:
+        raise AssertionError(f"data_trainer losses {losses} do not follow the train phase's "
+                             f"{train_losses}")
+    if final["rendezvous_s"] is None:
+        raise AssertionError("the worker's group did not meet through the GCS KV")
+    return final["launches"]
+
+
+def processor_rows(vocab: int) -> list:
+    """8 rows of 64-token prompts (the processor's numpy batch format needs
+    equal lengths), drawn from serving_server's generator after its
+    LLMServer prompts."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    for n in (24, 60, 130, 200, 256, 333, 400, 512):
+        rng.integers(0, vocab, size=n)
+    return [{"prompt_tokens": rng.integers(0, vocab, size=64).tolist(), "id": i}
+            for i in range(8)]
+
+
+def worker_probe(batch: dict) -> dict:
+    """Mapped after the processor (fused into its task): the worker's pid
+    and the flash launches its process has made, on every row."""
+    import numpy as np
+
+    from ray_tpu_torch import kernels
+
+    n = len(batch["id"])
+    out = dict(batch, pid=np.full(n, os.getpid()))
+    for name, c in kernels.launches().items():
+        out[f"launches_{name}"] = np.full(n, c)
+    return out
+
+
+class ProcessorMap:
+    """build_llm_processor's map as a callable class for an actor pool: the
+    worker draws the seed-0 weights once (the processor's cache) and runs
+    generate on each batch; every row carries the worker's pid."""
+
+    def __init__(self, cfg, max_new_tokens):
+        self.cfg = cfg
+        self.max_new_tokens = max_new_tokens
+
+    def __call__(self, batch):
+        from ray_tpu_torch.llm import batch as llm_batch
+        from ray_tpu_torch.llm import generation
+
+        params = llm_batch._cached_params(self.cfg)
+        prompts = [list(map(int, row)) for row in batch["prompt_tokens"]]
+        outs = generation.generate(params, self.cfg, prompts,
+                                   max_new_tokens=self.max_new_tokens, temperature=0.0)
+        return worker_probe(dict(batch, completion_tokens=outs))
+
+
+def phase_data_batch(card: str) -> dict:
+    """build_llm_processor over ray_tpu_torch.data on the runtime's task
+    workers (params=None: each draws its seed-0 weights on the card). At 2
+    layers, float32, the rows' tokens equal the driver's generate with the
+    same init; at 32 layers, bf16, 16 rows in 2 blocks, then the same map
+    on an actor pool of 1 whose tokens equal the tasks'. Returns the flash
+    launches summed over the workers (0)."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch.data as rtd
+    from ray_tpu_torch.llm import build_llm_processor, generate
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+
+    def stream(ds):
+        """(rows, seconds to the first block, wall seconds)."""
+        t0, first, out = time.perf_counter(), None, []
+        for block in ds.iter_blocks():
+            first = first if first is not None else time.perf_counter() - t0
+            out.extend(rtd.BlockAccessor.for_block(block).rows())
+        return out, first, time.perf_counter() - t0
+
+    def launches(rows) -> dict:
+        """Each kernel's launches summed over the workers (each row carries
+        its worker's running count)."""
+        per_pid = {}
+        for r in rows:
+            per_pid[int(r["pid"])] = {n.removeprefix("launches_"): int(r[n])
+                                      for n in r if n.startswith("launches_")}
+        total = collections.Counter()
+        for c in per_pid.values():
+            total.update(c)
+        return dict(total)
+
+    # this process's cached blocks go back first, so that the card's free
+    # memory shows what the data workers take
+    driver_reserved = torch.cuda.memory_reserved()
+    gc.collect()
+    torch.cuda.empty_cache()
+    driver_kept = torch.cuda.memory_reserved()
+    free_before, total_mem = torch.cuda.mem_get_info()
+    cfg = LlamaConfig.llama3_8b()
+    rows = processor_rows(cfg.vocab_size)
+    prompts = [r["prompt_tokens"] for r in rows]
+
+    # float32, 2 layers at full width: the task's tokens against the driver's
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    proc32 = build_llm_processor(cfg32, batch_size=8, max_new_tokens=DATA_MAX_TOKENS)
+    out32, _, wall32 = stream(proc32(rtd.from_items(rows)).map_batches(worker_probe))
+    params32 = llama_init(torch.Generator(device="cuda").manual_seed(0), cfg32, "cuda")
+    want32 = generate(params32, cfg32, prompts, max_new_tokens=DATA_MAX_TOKENS)
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    same32 = [r["completion_tokens"].tolist() == w for r, w in zip(out32, want32)]
+
+    # bf16, 32 layers: 16 rows in 2 blocks on task workers, then an actor pool
+    rows16 = [dict(r, id=i) for i, r in enumerate(rows + rows)]
+    proc = build_llm_processor(cfg, batch_size=8, max_new_tokens=DATA_MAX_TOKENS)
+    out, first_s, wall = stream(proc(rtd.from_items(rows16)).map_batches(worker_probe))
+    free_mid = torch.cuda.mem_get_info()[0]
+    pooled, pool_first_s, pool_wall = stream(rtd.from_items(rows16).map_batches(
+        ProcessorMap, batch_size=8, compute=rtd.ActorPoolStrategy(size=1),
+        fn_constructor_args=(cfg, DATA_MAX_TOKENS)))
+    free_after = torch.cuda.mem_get_info()[0]
+    task_tokens = [r["completion_tokens"].tolist() for r in out]
+    pool_tokens = [r["completion_tokens"].tolist() for r in pooled]
+    task_pids = sorted({int(r["pid"]) for r in out})
+    pool_pids = sorted({int(r["pid"]) for r in pooled})
+    flash = {"f32": launches(out32), "tasks": launches(out), "pool": launches(pooled)}
+    total = collections.Counter()
+    for c in flash.values():
+        total.update(c)
+    n_tokens = sum(len(t) for t in task_tokens)
+    emit({"phase": "data_batch", "rows_f32": len(out32), "f32_equal_generate": same32,
+          "f32_wall_s": wall32, "rows": len(out), "blocks": 2, "layers": cfg.n_layers,
+          "dtype": cfg.dtype, "max_new_tokens": DATA_MAX_TOKENS, "tokens": n_tokens,
+          "tokens_per_s": n_tokens / wall, "seconds_to_first_block": first_s, "wall_s": wall,
+          "task_worker_pids": task_pids, "f32_worker_pids": sorted({int(r["pid"]) for r in out32}),
+          "pool_rows": len(pooled), "pool_tokens_per_s": n_tokens / pool_wall,
+          "pool_seconds_to_first_block": pool_first_s, "pool_wall_s": pool_wall,
+          "pool_worker_pids": pool_pids, "pool_equal_tasks": pool_tokens == task_tokens,
+          "flash_launches": flash,
+          "driver_reserved_before": driver_reserved,
+          "driver_reserved_after_release": driver_kept,
+          "mem_free_before": free_before, "mem_free_after_tasks": free_mid,
+          "mem_free_after_pool": free_after, "mem_total": total_mem,
+          "card": card})
+    if len(out32) != len(rows) or not all(same32):
+        raise AssertionError(f"f32 processor tokens differ from generate: {same32}")
+    if len(out) != 16 or [int(r["id"]) for r in out] != list(range(16)):
+        raise AssertionError(f"the bf16 processor returned {len(out)} rows")
+    check_completions("data_batch", [r["prompt_tokens"] for r in out], task_tokens, cfg,
+                      DATA_MAX_TOKENS)
+    if len(pooled) != 16 or pool_tokens != task_tokens or len(pool_pids) != 1:
+        raise AssertionError(f"the actor pool's rows differ from the tasks' (pids {pool_pids})")
+    if any(total.values()):
+        raise AssertionError(f"flash launches in the data workers: {flash}")
+    return dict(total)
+
+
 # --------------------------------------------------------------------- rllib
 # ray_tpu_torch.rllib in process on the card: float32, TF32 off, no flash
 # kernel on the path (small MLPs; the launches are read to be 0).
@@ -3489,6 +3744,7 @@ def phase_rllib_learners(card: str) -> None:
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3535,7 +3791,7 @@ def main() -> int:
     # sit in reference cycles that hold the weights until a collection
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, train_losses = phase_train(card, kernels, k)
+    train_launches, train_losses, train_tokens = phase_train(card, kernels, k)
     gc.collect()
     torch.cuda.empty_cache()
     moe_fwd_launches = phase_moe_forward(card, kernels)
@@ -3554,6 +3810,10 @@ def main() -> int:
     phase_trainer_checkpoint(card)
     phase_trainer_dp2(card)
     phase_dryrun(card)
+    data_trainer_launches = phase_data_trainer(card, train_losses, train_tokens)
+    # after every phase that needs the card: the task workers' cached
+    # weights stay until the runtime's shutdown
+    data_batch_launches = phase_data_batch(card)
     import ray_tpu_torch
 
     ray_tpu_torch.shutdown()  # every worker and the shm arena go with it
@@ -3590,10 +3850,13 @@ def main() -> int:
                "sharded_launches": sharded_launches.get(name, 0),
                "serve_run_launches": serve_launches_replicas.get(name, 0),
                "serve_disagg_launches": serve_disagg_launches.get(name, 0),
+               "data_trainer_launches": data_trainer_launches[name],
+               "data_batch_launches": data_batch_launches.get(name, 0),
                "rllib_launches": rl_launches[name], **k[name]}
         if name != "flash_attention_fwd":
             row["plain_and_library_cover"] = "dq+dkv"
         rows.append(row)
+    emit({"phase": "wall", "seconds": time.perf_counter() - started, "card": card})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

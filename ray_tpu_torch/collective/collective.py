@@ -2,16 +2,21 @@
 
 Counterpart of ``ray_tpu/collective/collective.py``: the same names and
 signatures, each group a ``TorchCollectiveGroup``. ``create_collective_group``
-tells actors of the port's runtime to join.
+tells actors of the port's runtime to join. Without an ``init_method``, a
+process with the runtime up meets its group through the runtime's GCS KV,
+as JAX's ranks do (``torch_group.maybe_init_distributed``).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any
 
+import torch.distributed as dist
+
 from ray_tpu_torch.collective.communicator import Communicator
-from ray_tpu_torch.collective.torch_group import TorchCollectiveGroup
+from ray_tpu_torch.collective.torch_group import TorchCollectiveGroup, maybe_init_distributed
 from ray_tpu_torch.collective.types import Backend, ReduceOp
 
 
@@ -57,8 +62,27 @@ def init_collective_group(
 ) -> Communicator:
     """Join this process into a collective group (call once per member).
     Without a default process group, ``init_method`` (e.g.
-    ``"file://<dir>/rdzv"``) starts one."""
-    return _manager.create_group(backend, world_size, rank, group_name, init_method)
+    ``"file://<dir>/rdzv"``) starts one; without it, the ranks meet through
+    the GCS KV of the runtime this process is attached to (a worker's, or
+    the driver's after ``ray_tpu_torch.init``): rank 0 publishes a store's
+    address under the group's key, the others poll for it up to 60 s
+    (``TimeoutError`` after)."""
+    from ray_tpu_torch.core import api
+
+    t0 = time.perf_counter()
+    starts = not dist.is_initialized()
+    if starts and init_method is None and api.is_initialized():
+        core = api.get_core()
+
+        def gcs_call(method, payload):
+            return core._run_sync(core.gcs.call(method, payload))
+
+        maybe_init_distributed(gcs_call, group_name, world_size, rank, backend,
+                               core.raylet_address[0])
+    group = _manager.create_group(backend, world_size, rank, group_name, init_method)
+    if starts:
+        group.rendezvous_s = time.perf_counter() - t0
+    return group
 
 
 def create_collective_group(

@@ -13,16 +13,25 @@ Its semantics are JAX's:
 - values may be numpy arrays (or scalars) or tensors, and come back in the
   form they went in: numpy in gives numpy out.
 
-The group joins (or starts) the process's default group. Rendezvous is the
-caller's ``init_method``, e.g. ``file://<dir>/rdzv``: a file store, which
-binds no port in the calling process. NCCL moves CUDA tensors (numpy goes
-through this process's card); gloo moves host tensors, so a CUDA tensor
-given to a gloo group is staged through host memory and put back on its
-card.
+The group joins (or starts) the process's default group. It starts one
+through the caller's ``init_method`` (e.g. ``file://<dir>/rdzv``) when
+given, else through the GCS KV of the port's runtime
+(``maybe_init_distributed``, the counterpart of JAX's in
+``xla_group.py``): rank 0 binds a ``TCPStore`` to port 0, so the kernel
+picks a port no other process holds and no "free port" is probed and
+bound later (a race between concurrent groups), then publishes the
+store's address under ``collective:<group>:coordinator``; the other ranks
+poll for it and connect. Unlike a file store, this needs no filesystem
+that every rank shares. NCCL moves CUDA tensors (numpy goes through this
+process's card); gloo moves host tensors, so a CUDA tensor given to a
+gloo group is staged through host memory and put back on its card.
 """
 from __future__ import annotations
 
+import datetime
 import functools
+import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -40,18 +49,70 @@ _DTYPES = [torch.float32, torch.float64, torch.int32, torch.int64, torch.uint8, 
            torch.float16, torch.bfloat16, torch.int16, torch.int8, torch.complex64]
 
 
+COORDINATOR_NS = "collective"
+
+
+def coordinator_key(group_name: str) -> str:
+    """The GCS KV key (in namespace ``COORDINATOR_NS``) of a group's
+    coordinator address, JAX's key."""
+    return f"collective:{group_name}:coordinator"
+
+
+def maybe_init_distributed(gcs_call: Callable, group_name: str, world_size: int, rank: int,
+                           backend: str, host: str, timeout_s: float = 60.0) -> None:
+    """Start this process's default group through the GCS KV, unless one
+    exists. Rank 0 binds a ``TCPStore`` on ``host`` (the address the
+    runtime uses for this node) at a port the kernel picks, and publishes
+    ``host:port``; the others poll the key every 0.1 s for up to
+    ``timeout_s`` (``TimeoutError`` after) and connect to it. Then
+    ``torch.distributed`` starts on the store (NCCL or gloo).
+    ``gcs_call(method, payload)`` is a synchronous GCS call."""
+    if dist.is_initialized():
+        return
+    key = coordinator_key(group_name)
+    connect = datetime.timedelta(seconds=timeout_s)
+    if rank == 0:
+        store = dist.TCPStore(host, 0, world_size, is_master=True, wait_for_workers=False,
+                              timeout=connect)
+        gcs_call("kv_put", {"ns": COORDINATOR_NS, "key": key,
+                            "value": f"{host}:{store.port}".encode()})
+    else:
+        deadline = time.monotonic() + timeout_s
+        addr = None
+        while time.monotonic() < deadline:
+            raw = gcs_call("kv_get", {"ns": COORDINATOR_NS, "key": key})
+            if raw:
+                addr = raw.decode()
+                break
+            time.sleep(0.1)
+        if addr is None:
+            raise TimeoutError(f"collective coordinator address of group {group_name!r} "
+                               f"never appeared (waited {timeout_s} s)")
+        coord_host, port = addr.rsplit(":", 1)
+        store = dist.TCPStore(coord_host, int(port), world_size, is_master=False,
+                              timeout=connect)
+    # connecting waits timeout_s; the group's own waits (a rank that
+    # reaches its first collective late) get torch's default
+    store.set_timeout(dist.default_pg_timeout)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
+
+
 class TorchCollectiveGroup(Communicator):
-    """One group over every rank of the world (``world_size`` processes)."""
+    """One group over every rank of the world (``world_size`` processes).
+    ``rendezvous_s``: the seconds ``init_collective_group`` took to start
+    the default group (None when it joined one that existed)."""
 
     def __init__(self, world_size: int, rank: int, group_name: str,
                  backend: str = Backend.NCCL, init_method: str | None = None):
         super().__init__(world_size, rank, group_name)
         if backend not in (Backend.NCCL, Backend.GLOO):
             raise ValueError(f"unknown collective backend {backend!r}")
+        self.rendezvous_s = None  # set by init_collective_group when it starts the world
         if not dist.is_initialized():
             if init_method is None:
                 raise ValueError("no default process group: pass init_method "
-                                 "(e.g. 'file://<dir>/rdzv')")
+                                 "(e.g. 'file://<dir>/rdzv') or start the runtime "
+                                 "(ray_tpu_torch.init) to meet through its GCS")
             dist.init_process_group(backend, init_method=init_method, rank=rank,
                                     world_size=world_size)
         if (dist.get_world_size(), dist.get_rank()) != (world_size, rank):

@@ -1,7 +1,9 @@
 """Batch LLM inference over ``ray_tpu_torch.data`` datasets.
 
 Counterpart of ``ray_tpu/llm/batch.py``: a processor maps batched
-``generate`` over a dataset with ``map_batches``, one call per batch.
+``generate`` over a dataset with ``map_batches``, so each batch is one map
+task of the data executor on the runtime's workers, one ``generate`` call
+per task.
 """
 from __future__ import annotations
 
@@ -20,8 +22,10 @@ def build_llm_processor(model_config, *, params=None, batch_size: int = 8,
                         output_column: str = "completion_tokens",
                         device=None) -> Callable:
     """Returns dataset -> dataset applying batched generation. Without
-    ``params``, weights are a random init from seed 0 on ``device`` (None
-    means cuda), made once per config and device."""
+    ``params``, each task worker draws the weights itself, a random init
+    from seed 0 on ``device`` (None means cuda), once per config and
+    device. Given ``params`` travel with every task by value: a card's
+    weights ride the runtime's RPC frame into each task."""
 
     def apply(dataset):
         def infer_batch(batch: dict[str, Any]) -> dict[str, Any]:
@@ -45,8 +49,9 @@ _param_cache: dict = {}
 
 
 def _cached_params(cfg, device=None):
-    """Random-init weights once per (config, device) (testing and
-    benchmarking path; real weights arrive via the params argument)."""
+    """Random-init weights once per (config, device) in this process
+    (testing and benchmarking path; real weights arrive via the params
+    argument)."""
     dev = resolve_device(device)
     key = (cfg, str(dev))  # LlamaConfig is a frozen (hashable) dataclass
     if key not in _param_cache:

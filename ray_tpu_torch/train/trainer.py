@@ -6,8 +6,10 @@ task/actor runtime (``ray_tpu_torch.core``; ``fit`` calls
 ``ray_tpu_torch.init()`` on first use). The controller creates one
 ``TrainWorker`` actor (``train/worker.py``) per rank in a placement group
 with a bundle per worker (``{"CPU": 1, "GPU": share}``); the ranks meet in
-one ``torch.distributed`` world through a file store in the run's directory
-(NCCL on the cards, gloo otherwise) and each runs
+one ``torch.distributed`` world through the runtime's GCS KV under a group
+name of the attempt's own, ``<name>_g<attempt>``, so a restarted attempt
+never reads a dead attempt's address (NCCL on the cards, gloo otherwise),
+and each runs
 ``train_loop_per_worker(config)``. The controller polls their reports as
 they come, registers rank 0's checkpoints with a ``CheckpointManager``
 (top-K retention), and on a worker's failure (an exception, or an actor
@@ -182,8 +184,7 @@ class TorchTrainer:
                     max_concurrency=2,
                 ).remote(rank, n, name, scaling.backend(), f"{name}_g{attempt}"))
             resume = manager.latest() or self.resume_from_checkpoint
-            spec = {"init_method": f"file://{os.path.join(work, 'rdzv')}",
-                    "use_gpu": scaling.gpu(), "sys_path": self._loop_path,
+            spec = {"use_gpu": scaling.gpu(), "sys_path": self._loop_path,
                     "checkpoint": resume.path if resume else None, "staging_dir": staging}
             ray_tpu_torch.get([w.setup.remote({**spec, "gpu_ids": gpu_ids[r] if gpu_ids else None})
                                for r, w in enumerate(workers)], timeout=300)

@@ -4,10 +4,12 @@
 ``TorchTrainer`` creates one ``TrainWorker`` actor per rank in a placement
 group and calls ``setup`` on every rank at once, then ``run``, and drains
 the reports with ``poll`` while ``run`` blocks (the actor runs two methods
-at a time). ``setup`` sets the worker's card, joins the
-``torch.distributed`` world through the run's file rendezvous (NCCL on the
-cards, gloo otherwise) and the collective group, and opens the session;
-``run`` imports the loop by name and runs it.
+at a time). ``setup`` sets the worker's card, joins the collective group
+(NCCL on the cards, gloo otherwise) and with it the ``torch.distributed``
+world, meeting the other ranks through the runtime's GCS KV under the
+attempt's group name (``collective.init_collective_group``, as JAX's
+``setup`` does), and opens the session; ``run`` imports the loop by name
+and runs it.
 
 A worker's card: a whole card is pinned by the runtime's lease
 (``CUDA_VISIBLE_DEVICES``, set before any user code runs); a share of one
@@ -49,10 +51,9 @@ class TrainWorker:
         self._session = None
 
     def setup(self, spec: dict) -> bool:
-        """``spec``: the rendezvous (``init_method``), ``use_gpu``, the card
-        of a fractional share (``gpu_ids``, else ``None``), the checkpoint
-        to start from, the staging directory and the directories to import
-        the loop from."""
+        """``spec``: ``use_gpu``, the card of a fractional share
+        (``gpu_ids``, else ``None``), the checkpoint to start from, the
+        staging directory and the directories to import the loop from."""
         for path in reversed(spec["sys_path"]):
             if path not in sys.path:
                 sys.path.insert(0, path)
@@ -62,7 +63,6 @@ class TrainWorker:
             # before CUDA's first call in this process
             GPUAcceleratorManager.set_current_process_visible_accelerator_ids(spec["gpu_ids"])
         import torch
-        import torch.distributed as dist
 
         from ray_tpu_torch import collective
         from ray_tpu_torch.train.checkpoint import Checkpoint
@@ -75,8 +75,6 @@ class TrainWorker:
             device = torch.device("cuda", 0)
         else:
             device = torch.device("cpu")
-        dist.init_process_group(self.backend, init_method=spec["init_method"],
-                                rank=self.rank, world_size=self.world_size)
         collective.init_collective_group(self.world_size, self.rank, self.backend,
                                          self.group_name)
         start = Checkpoint.from_directory(spec["checkpoint"]) if spec["checkpoint"] else None

@@ -81,3 +81,27 @@ def actor_loop(config):
     actor_id = ray_tpu_torch.get_runtime_context().get_actor_id()
     train.report({"in_actor": actor_id is not None, "pid": os.getpid(),
                   "device": str(train.get_device())})
+
+
+def split_linear_loop(config):
+    """``tests/test_data.py``'s streaming_split loop in torch: each rank
+    pulls its DataIterator (``config["splits"][rank]``, a shard of one
+    stream) in batches of 16 and takes a gradient step on each, gradients
+    averaged through the collective group; reports the rows it saw, the
+    loss on the whole set and the seconds the group's rendezvous took."""
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    it = config["splits"][rank]
+    w = torch.zeros(4)
+    rows = 0
+    for batch in it.iter_batches(batch_size=16):
+        x, y = torch.from_numpy(batch["x"]), torch.from_numpy(batch["y"])
+        w = w.detach().requires_grad_(True)
+        torch.mean((x @ w - y) ** 2).backward()
+        g = collective.allreduce(w.grad.numpy(), group_name=ctx.collective_group) / world
+        w = w.detach() - 0.1 * torch.from_numpy(g)
+        rows += len(batch["x"])
+    x_full, y_full = (torch.from_numpy(a) for a in config["eval"])
+    group = collective.get_group_handle(ctx.collective_group)
+    train.report({"rows": rows, "loss": float(torch.mean((x_full @ w - y_full) ** 2)),
+                  "rendezvous_s": group.rendezvous_s})

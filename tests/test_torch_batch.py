@@ -1,23 +1,51 @@
 """The port's batch inference against the JAX package, on the CPU:
-``build_llm_processor`` over the port's in-process dataset gives JAX
-``generate``'s tokens, one call per batch, and the dataset hands the
-mapped function ``ray_tpu.data``'s numpy batch format. No test starts the
-ray_tpu runtime."""
+``build_llm_processor`` maps ``generate`` over a ``ray_tpu_torch.data``
+dataset as the data executor's remote map tasks, one task and one call per
+block, and gives the tokens of JAX's ``build_llm_processor`` over
+``ray_tpu.data`` (run on a JAX runtime in a subprocess,
+``tests/_torch_batch_jax.py``) and of JAX ``generate`` per block. Batches
+reach the mapped function in ``ray_tpu.data``'s numpy batch format.
+
+One port runtime serves the module (``ray_tpu_torch.init``); idle leases go
+back after 1 s."""
+
+import dataclasses
 
 import jax
 import numpy as np
 import pytest
 import torch
 
-from ray_tpu.data.block import BlockAccessor
+import _torch_batch_jax
+import _torch_data_jax
+from _torch_time_limit import time_limits
+from ray_tpu.data.block import BlockAccessor as JBlockAccessor
 from ray_tpu.llm import generate as jgenerate
 from ray_tpu.models import llama as jllama
-from ray_tpu_torch.data import from_items
-from ray_tpu_torch.data.dataset import to_batch
+from ray_tpu_torch.core.ref import TaskError
+from ray_tpu_torch.data import BlockAccessor, from_items
 from ray_tpu_torch.llm import batch as tbatch
 from ray_tpu_torch.llm import build_llm_processor
 from ray_tpu_torch.llm import generation as tgeneration
 from ray_tpu_torch.models import llama as tllama
+
+# the JAX processor's subprocess ~16 s alone; a case's task workers import
+# torch and the model (~5 s each)
+_module_limit, _test_limit = time_limits(module_s=240, test_s=120)
+
+
+@pytest.fixture(scope="module")
+def rt():
+    import ray_tpu_torch
+    from ray_tpu_torch import config
+
+    ray_tpu_torch.shutdown()  # a runtime another module left in this process
+    cfg = config.get_config()
+    config.set_config(dataclasses.replace(cfg, worker_lease_timeout_s=1.0))
+    ray_tpu_torch.init(num_cpus=4)
+    yield ray_tpu_torch
+    ray_tpu_torch.shutdown()
+    config.set_config(cfg)
 
 
 @pytest.fixture(scope="module")
@@ -30,28 +58,32 @@ def models():
     return jcfg, jparams, tcfg, params
 
 
-def test_processor_matches_jax_generate(models, monkeypatch):
-    """10 rows at batch_size 4: three generate calls over blocks of 4, 3
-    and 3 rows (ray_tpu.data's repartition), each row's completion equal
-    to JAX generate's over the same batch, the other columns kept."""
+@pytest.fixture(scope="module")
+def jax_processor_rows(tmp_path_factory):
+    return _torch_data_jax.run_once(tmp_path_factory, "_torch_batch_jax.py", timeout=200)
+
+
+def test_processor_matches_jax_generate(rt, models, jax_processor_rows):
+    """10 rows at batch_size 4: three map tasks over blocks of 4, 3 and 3
+    rows (ray_tpu.data's repartition), each one generate call whose rows
+    equal JAX generate's over the same block and JAX's processor's rows
+    over ray_tpu.data, the other columns kept."""
     jcfg, jparams, tcfg, params = models
-    rows = [{"prompt_tokens": [1, 2, 3, 10 + i], "id": i} for i in range(10)]
-    calls = []
-    real = tgeneration.generate
-    monkeypatch.setattr(tgeneration, "generate",
-                        lambda p, c, prompts, **kw: calls.append(prompts)
-                        or real(p, c, prompts, **kw))
-    processor = build_llm_processor(tcfg, params=params, batch_size=4,
-                                    max_new_tokens=3)
-    out = processor(from_items(rows)).take_all()
-    assert [len(c) for c in calls] == [4, 3, 3]
-    want = [t for c in calls for t in jgenerate(jparams, jcfg, c, max_new_tokens=3,
-                                                  temperature=0.0)]
+    rows = _torch_batch_jax.ROWS
+    processor = build_llm_processor(tcfg, params=params, batch_size=_torch_batch_jax.BATCH_SIZE,
+                                    max_new_tokens=_torch_batch_jax.MAX_NEW)
+    blocks = [list(BlockAccessor.for_block(b).rows())
+              for b in processor(from_items(rows)).iter_blocks()]
+    assert [len(b) for b in blocks] == [4, 3, 3]
+    out = [r for b in blocks for r in b]
+    want = [t for b in blocks for t in jgenerate(
+        jparams, jcfg, [r["prompt_tokens"].tolist() for r in b],
+        max_new_tokens=_torch_batch_jax.MAX_NEW, temperature=0.0)]
     assert len(out) == 10
-    for row, src, w in zip(out, rows, want):
-        assert row["id"] == src["id"]
-        assert row["prompt_tokens"].tolist() == src["prompt_tokens"]
-        assert row["completion_tokens"].tolist() == w
+    for row, src, w, j in zip(out, rows, want, jax_processor_rows):
+        assert row["id"] == src["id"] == j["id"]
+        assert row["prompt_tokens"].tolist() == src["prompt_tokens"] == j["prompt_tokens"]
+        assert row["completion_tokens"].tolist() == w == j["completion_tokens"]
 
 
 @pytest.mark.parametrize("rows", [
@@ -62,8 +94,8 @@ def test_processor_matches_jax_generate(models, monkeypatch):
 def test_batch_format_matches_ray_tpu_data(rows):
     """A block of rows reaches the mapped function as ray_tpu.data renders
     it in numpy batch format."""
-    got = to_batch(rows)
-    want = BlockAccessor.for_block(rows).to_batch("numpy")
+    got = BlockAccessor.for_block(rows).to_batch("numpy")
+    want = JBlockAccessor.for_block(rows).to_batch("numpy")
     if isinstance(want, dict):
         assert sorted(got) == sorted(want)
         for k in want:
@@ -73,37 +105,38 @@ def test_batch_format_matches_ray_tpu_data(rows):
         np.testing.assert_array_equal(got, want)
 
 
-def test_ragged_prompts_raise_as_in_ray_tpu_data():
+def test_ragged_prompts_raise_as_in_ray_tpu_data(rt):
     """Ragged prompt columns do not fit one numpy array: both packages'
-    numpy batch format raise ValueError for them."""
+    numpy batch format raise ValueError for them (in the port's map task,
+    so the driver's get raises the task's error)."""
     rows = [{"prompt_tokens": [1, 2, 3]}, {"prompt_tokens": [4, 5]}]
     with pytest.raises(ValueError):
-        BlockAccessor.for_block(rows).to_batch("numpy")
+        JBlockAccessor.for_block(rows).to_batch("numpy")
     with pytest.raises(ValueError):
-        from_items(rows).map_batches(lambda b: b, batch_size=2)
+        BlockAccessor.for_block(rows).to_batch("numpy")
+    with pytest.raises(TaskError, match="ValueError"):
+        from_items(rows).map_batches(lambda b: b, batch_size=2).take_all()
 
 
-def test_map_batches_blocks():
-    """No batch_size: one block per from_items chunk; a returned array
-    becomes the column ``data``; a batch format other than numpy raises."""
+def test_map_batches_blocks(rt):
+    """No batch_size: one block per from_items chunk, each one map task
+    (the mapped function returns its block's size); a returned array
+    becomes the column ``data``; an unknown batch format raises in the
+    task."""
     ds = from_items([{"v": i} for i in range(7)], parallelism=3)
-    seen = []
-
-    def fn(b):
-        seen.append(len(b["v"]))
-        return b["v"] * 2
-
-    out = ds.map_batches(fn).take_all()
-    assert seen == [3, 2, 2]
+    sizes = ds.map_batches(lambda b: {"n": np.array([len(b["v"])])}).take_all()
+    assert [r["n"] for r in sizes] == [3, 2, 2]
+    out = ds.map_batches(lambda b: b["v"] * 2).take_all()
     assert [r["data"] for r in out] == [0, 2, 4, 6, 8, 10, 12]
     assert ds.count() == 7
-    with pytest.raises(ValueError):
-        ds.map_batches(fn, batch_format="pandas")
+    with pytest.raises(TaskError, match="unknown batch_format"):
+        ds.map_batches(lambda b: b, batch_format="nope").take_all()
 
 
-def test_cached_params_keyed_by_config_and_device(models):
-    """Without params the processor draws weights once per (config,
-    device), from seed 0 with llama_init."""
+def test_cached_params_keyed_by_config_and_device(rt, models):
+    """Without params the processor's task workers draw weights once per
+    (config, device), from seed 0 with llama_init: the same weights as
+    this process's cache, so the same tokens."""
     _, _, tcfg, _ = models
     tbatch._param_cache.clear()
     a = tbatch._cached_params(tcfg, "cpu")

@@ -2,12 +2,17 @@
 gloo world, against numpy.
 
 The ranks are fresh interpreters (``tests/_torch_collective_rank.py``)
-started with ``subprocess.Popen``; they meet through a file store, so the
-pytest process joins no group and binds no port, and every rank is killed
-after 90 s or on the first failure. Every ``Communicator`` op runs on numpy
-arrays and on tensors, with JAX's semantics (``ray_tpu/collective``):
-allgather stacks on a new axis 0, reducescatter gives this rank's chunk of
-the reduction, MEAN is a float mean, numpy in gives numpy out.
+started with ``subprocess.Popen``, and every rank is killed after 90 s or
+on the first failure; the pytest process joins no group and binds no port
+of its own. They meet through a file store (``init_method``), or through
+the GCS KV of a port runtime this module starts, which they join with
+``ray_tpu_torch.init(address=...)``: rank 0 publishes a store's address
+under ``collective:g_gcs:coordinator`` and rank 1 polls for it, as JAX's ranks
+do (``tests/test_collective_distributed.py``). Every ``Communicator`` op
+runs on numpy arrays and on tensors, with JAX's semantics
+(``ray_tpu/collective``): allgather stacks on a new axis 0, reducescatter
+gives this rank's chunk of the reduction, MEAN is a float mean, numpy in
+gives numpy out.
 """
 
 import os
@@ -18,19 +23,23 @@ import time
 import numpy as np
 import pytest
 
+from _torch_time_limit import time_limits
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HELPER = os.path.join(ROOT, "tests", "_torch_collective_rank.py")
 WORLD = 2
+# each world ~6 s (two interpreters import torch and join)
+_module_limit, _test_limit = time_limits(module_s=240, test_s=120)
 
 
 def _value(rank):
     return np.random.default_rng(rank).standard_normal((4, 3)).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def outs(tmp_path_factory):
-    work = tmp_path_factory.mktemp("collective_world")
-    env = dict(os.environ, PYTHONPATH=ROOT, WORLD_SIZE=str(WORLD), OMP_NUM_THREADS="1")
+def _world(work, **extra_env) -> list:
+    """Run the 2-rank world in ``work``; each rank's outputs."""
+    env = dict(os.environ, PYTHONPATH=ROOT, WORLD_SIZE=str(WORLD), OMP_NUM_THREADS="1",
+               **extra_env)
     procs = [subprocess.Popen([sys.executable, HELPER, str(work)], env=dict(env, RANK=str(r)),
                               cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for r in range(WORLD)]
@@ -48,6 +57,31 @@ def outs(tmp_path_factory):
     logs = [p.stdout.read().decode(errors="replace")[-3000:] for p in procs]
     assert all(p.returncode == 0 for p in procs), logs
     return [dict(np.load(work / f"out_{r}.npz")) for r in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def outs(tmp_path_factory):
+    return _world(tmp_path_factory.mktemp("collective_world"))
+
+
+@pytest.fixture(scope="module")
+def rt():
+    import ray_tpu_torch
+
+    ray_tpu_torch.shutdown()  # a runtime another module left in this process
+    ray_tpu_torch.init(num_cpus=2)
+    yield ray_tpu_torch
+    ray_tpu_torch.shutdown()
+
+
+@pytest.fixture(scope="module", params=["gcs", "init_method"])
+def runtime_outs(request, rt, tmp_path_factory):
+    """The world with the runtime up: meeting through its GCS KV (no
+    init_method), or through an explicit init_method."""
+    host, port = rt.get_core().gcs_address
+    work = tmp_path_factory.mktemp(f"collective_{request.param}")
+    return request.param, _world(work, RTT_RDZV=request.param,
+                                 RTT_TEST_GCS=f"{host}:{port}")
 
 
 def _expected(rank):
@@ -137,3 +171,51 @@ def test_sendrecv_needs_two_ranks():
     assert group.sendrecv(t, 0, 0) is t
     with pytest.raises(RuntimeError, match="world_size > 1"):
         group.sendrecv(x, 0, 1)
+
+
+def test_gcs_rendezvous_runs_every_op(runtime_outs):
+    """Through the GCS KV, or an explicit init_method with the runtime up:
+    every op gives numpy's result (allreduce, allgather, broadcast and
+    reducescatter among them, JAX's distributed assertions), and only the
+    GCS rendezvous publishes rank 0's store address under the group's
+    key (the explicit init_method wins)."""
+    mode, got = runtime_outs
+    for rank, out in enumerate(got):
+        for form in ("np", "pt"):
+            for name, want in _expected(rank).items():
+                np.testing.assert_allclose(out[f"{form}/{name}"], want, rtol=1e-6, atol=1e-6,
+                                           err_msg=f"{mode} rank {rank} {form} {name}")
+        assert float(out["rendezvous_s"]) >= 0
+    keys = {str(out["gcs_key"]) for out in got}
+    if mode == "gcs":
+        (addr,) = keys  # both ranks read the one address
+        host, port = addr.rsplit(":", 1)
+        assert host and int(port) > 0
+    else:
+        assert keys == {""}
+
+
+def test_rank_times_out_without_coordinator(rt):
+    """A rank whose rank 0 never publishes polls the GCS KV for the given
+    time and raises TimeoutError (no store is bound, no group started)."""
+    import time
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.collective.torch_group import maybe_init_distributed
+
+    core = rt.get_core()
+    calls = []
+
+    def gcs_call(method, payload):
+        calls.append((method, payload["ns"], payload["key"]))
+        return core._run_sync(core.gcs.call(method, payload))
+
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="never appeared"):
+        maybe_init_distributed(gcs_call, "nobody_publishes", 2, 1, "gloo",
+                               core.raylet_address[0], timeout_s=0.5)
+    assert 0.5 <= time.monotonic() - t0 < 5
+    assert not dist.is_initialized()
+    assert len(calls) >= 3  # polled every 0.1 s
+    assert set(calls) == {("kv_get", "collective", "collective:nobody_publishes:coordinator")}

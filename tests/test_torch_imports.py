@@ -12,7 +12,10 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
                "ray_tpu_torch.llm", "ray_tpu_torch.llm.disagg",
-               "ray_tpu_torch.serve", "ray_tpu_torch.data",
+               "ray_tpu_torch.serve", "ray_tpu_torch.data", "ray_tpu_torch.data.block",
+               "ray_tpu_torch.data.executor", "ray_tpu_torch.data.optimizer",
+               "ray_tpu_torch.data.iterator", "ray_tpu_torch.data.split",
+               "ray_tpu_torch.data.dataset", "ray_tpu_torch.llm.batch",
                "ray_tpu_torch.parallel", "ray_tpu_torch.parallel.comm",
                "ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
                "ray_tpu_torch.parallel.ring_attention", "ray_tpu_torch.parallel.ulysses",
@@ -21,6 +24,7 @@ SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
                "ray_tpu_torch.entry", "ray_tpu_torch.kernels",
                "ray_tpu_torch.accelerators", "ray_tpu_torch.accelerators.gpu",
                "ray_tpu_torch.collective", "ray_tpu_torch.collective.torch_group",
+               "ray_tpu_torch.collective.collective",
                "ray_tpu_torch.train", "ray_tpu_torch.train.worker",
                "ray_tpu_torch.train.trainer",
                "ray_tpu_torch.rllib", "ray_tpu_torch.rllib.envs", "ray_tpu_torch.rllib.core",
@@ -135,3 +139,15 @@ def test_llm_exports_match_jax():
     assert tllm.DisaggLLMServer is tdisagg.DisaggLLMServer
     assert all(hasattr(tllm, n) for n in tllm.__all__)
     assert tllm.prefix_hint is not None
+
+
+def test_data_exports_match_jax():
+    """ray_tpu_torch.data exports exactly ray_tpu.data's names, in its
+    order, and every one resolves."""
+    import ray_tpu.data as jdata
+
+    import ray_tpu_torch.data as tdata
+
+    assert tdata.__all__ == jdata.__all__
+    assert all(hasattr(tdata, n) for n in tdata.__all__)
+    assert tdata.range is tdata.dataset.range
