@@ -181,12 +181,15 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               drawing its own seed-0 weights on the card: at 2 layers,
               float32, full width, 8 equal-length prompts (one block): every
               row's completion_tokens equal the driver's generate with the
-              same init; at 32 layers, bf16, those prompts twice (16 rows,
-              2 blocks, 2 generate calls): rows, tokens/s, seconds to the
-              first block, the task workers' pids; then the same map as a
+              same init; at 32 layers, bf16, those prompts 5 times (40
+              rows, 5 blocks of 8): rows, tokens/s, seconds to the first
+              block, the task workers' pids; then the same map as a
               callable class on ActorPoolStrategy(size=1): its tokens equal
-              the task run's, one pid on every row; the card's free memory
-              before and after; 0 flash launches in every worker. The
+              the task run's, one pid on every row. Each task and the
+              actor lease the card (num_gpus=1), so one holds weights at a
+              time. Every block: 8 rows from one generate call over them,
+              in one process, and 0 flash launches, counted in its task
+              from 0. The card's free memory before and after. The
               runtime is shut down after it.
 19. rllib_parity — ray_tpu_torch.rllib on the card, float32, TF32 off: one
               update of each of PPO (minibatches 1), IMPALA, APPO, DQN, SAC,
@@ -3036,47 +3039,81 @@ def processor_rows(vocab: int) -> list:
             for i in range(8)]
 
 
-def worker_probe(batch: dict) -> dict:
-    """Mapped after the processor (fused into its task): the worker's pid
-    and the flash launches its process has made, on every row."""
+def worker_probe(batch: dict, generate_rows: list) -> dict:
+    """The task's or actor's pid, the rows of each generate call it made
+    for this block, and the flash launches it made for it, on every row
+    of its output."""
     import numpy as np
 
     from ray_tpu_torch import kernels
 
     n = len(batch["id"])
-    out = dict(batch, pid=np.full(n, os.getpid()))
+    calls = np.asarray(generate_rows, dtype=np.int64)
+    out = dict(batch, pid=np.full(n, os.getpid()),
+               generate_rows=np.broadcast_to(calls, (n, len(calls))).copy())
     for name, c in kernels.launches().items():
         out[f"launches_{name}"] = np.full(n, c)
     return out
 
 
+class ProbedDataset:
+    """A dataset whose map_batches wraps the mapped function (the
+    processor's map) in its own task: the task first clears its process's
+    flash launch counts and generate calls, then runs the map, then
+    stamps what that block took on its rows (worker_probe)."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def map_batches(self, fn, **kwargs):
+        def probed(batch, _fn=fn):
+            from ray_tpu_torch import kernels
+            from ray_tpu_torch.llm import batch as llm_batch
+
+            kernels.LAUNCHES.clear()
+            llm_batch.GENERATE_BATCHES.clear()
+            out = _fn(batch)
+            return worker_probe(out, list(llm_batch.GENERATE_BATCHES))
+
+        return self.ds.map_batches(probed, **kwargs)
+
+
 class ProcessorMap:
     """build_llm_processor's map as a callable class for an actor pool: the
     worker draws the seed-0 weights once (the processor's cache) and runs
-    generate on each batch; every row carries the worker's pid."""
+    one generate call on each batch, whose rows carry what worker_probe
+    reads for the block."""
 
     def __init__(self, cfg, max_new_tokens):
         self.cfg = cfg
         self.max_new_tokens = max_new_tokens
 
     def __call__(self, batch):
+        from ray_tpu_torch import kernels
         from ray_tpu_torch.llm import batch as llm_batch
         from ray_tpu_torch.llm import generation
 
         params = llm_batch._cached_params(self.cfg)
+        kernels.LAUNCHES.clear()
         prompts = [list(map(int, row)) for row in batch["prompt_tokens"]]
         outs = generation.generate(params, self.cfg, prompts,
                                    max_new_tokens=self.max_new_tokens, temperature=0.0)
-        return worker_probe(dict(batch, completion_tokens=outs))
+        return worker_probe(dict(batch, completion_tokens=outs), [len(prompts)])
+
+
+DATA_BATCH_COPIES = 5  # data_batch: the 8 prompts 5 times at 32 layers (5 blocks of 8)
 
 
 def phase_data_batch(card: str) -> dict:
     """build_llm_processor over ray_tpu_torch.data on the runtime's task
-    workers (params=None: each draws its seed-0 weights on the card). At 2
-    layers, float32, the rows' tokens equal the driver's generate with the
-    same init; at 32 layers, bf16, 16 rows in 2 blocks, then the same map
-    on an actor pool of 1 whose tokens equal the tasks'. Returns the flash
-    launches summed over the workers (0)."""
+    workers (params=None: the worker draws its seed-0 weights on the card;
+    each task leases the card, so one runs at a time). At 2 layers,
+    float32, one block of 8 rows whose tokens equal the driver's generate
+    with the same init; at 32 layers, bf16, 40 rows in 5 blocks, then the
+    same map on an actor pool of 1 whose tokens equal the tasks'. Every
+    block must come from one generate call over its 8 rows. Returns the
+    flash launches the blocks' tasks made (0), each block's read in its
+    task after clearing the counts at its start."""
     import numpy as np
     import torch
 
@@ -3085,23 +3122,26 @@ def phase_data_batch(card: str) -> dict:
     from ray_tpu_torch.models.llama import LlamaConfig, llama_init
 
     def stream(ds):
-        """(rows, seconds to the first block, wall seconds)."""
-        t0, first, out = time.perf_counter(), None, []
+        """(the blocks' rows, seconds to the first block, wall seconds)."""
+        t0, first, blocks = time.perf_counter(), None, []
         for block in ds.iter_blocks():
             first = first if first is not None else time.perf_counter() - t0
-            out.extend(rtd.BlockAccessor.for_block(block).rows())
-        return out, first, time.perf_counter() - t0
+            blocks.append(list(rtd.BlockAccessor.for_block(block).rows()))
+        return blocks, first, time.perf_counter() - t0
 
-    def launches(rows) -> dict:
-        """Each kernel's launches summed over the workers (each row carries
-        its worker's running count)."""
-        per_pid = {}
-        for r in rows:
-            per_pid[int(r["pid"])] = {n.removeprefix("launches_"): int(r[n])
-                                      for n in r if n.startswith("launches_")}
+    def check_blocks(what, blocks, n_blocks):
+        """Every block holds 8 rows, made by one generate call over them
+        in one process; each kernel's launches summed over the blocks."""
+        sizes = [len(b) for b in blocks]
+        calls = [sorted({tuple(int(x) for x in r["generate_rows"]) for r in b}) for b in blocks]
+        if sizes != [8] * n_blocks or calls != [[(8,)]] * n_blocks:
+            raise AssertionError(f"{what}: blocks of {sizes} rows from generate calls {calls}")
+        if any(len({int(r["pid"]) for r in b}) != 1 for b in blocks):
+            raise AssertionError(f"{what}: a block's rows come from more than one process")
         total = collections.Counter()
-        for c in per_pid.values():
-            total.update(c)
+        for b in blocks:
+            total.update({n.removeprefix("launches_"): int(b[0][n])
+                          for n in b[0] if n.startswith("launches_")})
         return dict(total)
 
     # this process's cached blocks go back first, so that the card's free
@@ -3118,7 +3158,8 @@ def phase_data_batch(card: str) -> dict:
     # float32, 2 layers at full width: the task's tokens against the driver's
     cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     proc32 = build_llm_processor(cfg32, batch_size=8, max_new_tokens=DATA_MAX_TOKENS)
-    out32, _, wall32 = stream(proc32(rtd.from_items(rows)).map_batches(worker_probe))
+    blocks32, _, wall32 = stream(proc32(ProbedDataset(rtd.from_items(rows))))
+    out32 = [r for b in blocks32 for r in b]
     params32 = llama_init(torch.Generator(device="cuda").manual_seed(0), cfg32, "cuda")
     want32 = generate(params32, cfg32, prompts, max_new_tokens=DATA_MAX_TOKENS)
     del params32
@@ -3126,45 +3167,58 @@ def phase_data_batch(card: str) -> dict:
     torch.cuda.empty_cache()
     same32 = [r["completion_tokens"].tolist() == w for r, w in zip(out32, want32)]
 
-    # bf16, 32 layers: 16 rows in 2 blocks on task workers, then an actor pool
-    rows16 = [dict(r, id=i) for i, r in enumerate(rows + rows)]
+    # bf16, 32 layers: 40 rows in 5 blocks on task workers, then an actor pool
+    rows_n = [dict(r, id=i) for i, r in enumerate(rows * DATA_BATCH_COPIES)]
+    n_blocks = len(rows_n) // 8
     proc = build_llm_processor(cfg, batch_size=8, max_new_tokens=DATA_MAX_TOKENS)
-    out, first_s, wall = stream(proc(rtd.from_items(rows16)).map_batches(worker_probe))
+    blocks, first_s, wall = stream(proc(ProbedDataset(rtd.from_items(rows_n))))
+    out = [r for b in blocks for r in b]
     free_mid = torch.cuda.mem_get_info()[0]
-    pooled, pool_first_s, pool_wall = stream(rtd.from_items(rows16).map_batches(
-        ProcessorMap, batch_size=8, compute=rtd.ActorPoolStrategy(size=1),
+    pool_blocks, pool_first_s, pool_wall = stream(rtd.from_items(rows_n).map_batches(
+        ProcessorMap, batch_size=8, compute=rtd.ActorPoolStrategy(size=1), num_gpus=1,
         fn_constructor_args=(cfg, DATA_MAX_TOKENS)))
+    pooled = [r for b in pool_blocks for r in b]
     free_after = torch.cuda.mem_get_info()[0]
     task_tokens = [r["completion_tokens"].tolist() for r in out]
     pool_tokens = [r["completion_tokens"].tolist() for r in pooled]
     task_pids = sorted({int(r["pid"]) for r in out})
     pool_pids = sorted({int(r["pid"]) for r in pooled})
-    flash = {"f32": launches(out32), "tasks": launches(out), "pool": launches(pooled)}
+    n_tokens = sum(len(t) for t in task_tokens)
+    readings = {"phase": "data_batch", "rows_f32": len(out32), "f32_equal_generate": same32,
+                "f32_wall_s": wall32, "f32_blocks": [len(b) for b in blocks32],
+                "rows": len(out), "blocks": [len(b) for b in blocks],
+                "generate_calls": [sorted({tuple(int(x) for x in r["generate_rows"])
+                                           for r in b}) for b in blocks],
+                "layers": cfg.n_layers, "dtype": cfg.dtype,
+                "max_new_tokens": DATA_MAX_TOKENS, "tokens": n_tokens,
+                "tokens_per_s": n_tokens / wall, "seconds_to_first_block": first_s,
+                "wall_s": wall, "task_worker_pids": task_pids,
+                "f32_worker_pids": sorted({int(r["pid"]) for r in out32}),
+                "pool_rows": len(pooled), "pool_blocks": [len(b) for b in pool_blocks],
+                "pool_tokens_per_s": n_tokens / pool_wall,
+                "pool_seconds_to_first_block": pool_first_s, "pool_wall_s": pool_wall,
+                "pool_worker_pids": pool_pids, "pool_equal_tasks": pool_tokens == task_tokens,
+                "driver_reserved_before": driver_reserved,
+                "driver_reserved_after_release": driver_kept,
+                "mem_free_before": free_before, "mem_free_after_tasks": free_mid,
+                "mem_free_after_pool": free_after, "mem_total": total_mem, "card": card}
+    try:
+        flash = {"f32": check_blocks("f32 tasks", blocks32, 1),
+                 "tasks": check_blocks("bf16 tasks", blocks, n_blocks),
+                 "pool": check_blocks("actor pool", pool_blocks, n_blocks)}
+    finally:
+        emit(readings)
     total = collections.Counter()
     for c in flash.values():
         total.update(c)
-    n_tokens = sum(len(t) for t in task_tokens)
-    emit({"phase": "data_batch", "rows_f32": len(out32), "f32_equal_generate": same32,
-          "f32_wall_s": wall32, "rows": len(out), "blocks": 2, "layers": cfg.n_layers,
-          "dtype": cfg.dtype, "max_new_tokens": DATA_MAX_TOKENS, "tokens": n_tokens,
-          "tokens_per_s": n_tokens / wall, "seconds_to_first_block": first_s, "wall_s": wall,
-          "task_worker_pids": task_pids, "f32_worker_pids": sorted({int(r["pid"]) for r in out32}),
-          "pool_rows": len(pooled), "pool_tokens_per_s": n_tokens / pool_wall,
-          "pool_seconds_to_first_block": pool_first_s, "pool_wall_s": pool_wall,
-          "pool_worker_pids": pool_pids, "pool_equal_tasks": pool_tokens == task_tokens,
-          "flash_launches": flash,
-          "driver_reserved_before": driver_reserved,
-          "driver_reserved_after_release": driver_kept,
-          "mem_free_before": free_before, "mem_free_after_tasks": free_mid,
-          "mem_free_after_pool": free_after, "mem_total": total_mem,
-          "card": card})
+    emit({"phase": "data_batch", "flash_launches": flash})
     if len(out32) != len(rows) or not all(same32):
         raise AssertionError(f"f32 processor tokens differ from generate: {same32}")
-    if len(out) != 16 or [int(r["id"]) for r in out] != list(range(16)):
+    if [int(r["id"]) for r in out] != list(range(len(rows_n))):
         raise AssertionError(f"the bf16 processor returned {len(out)} rows")
     check_completions("data_batch", [r["prompt_tokens"] for r in out], task_tokens, cfg,
                       DATA_MAX_TOKENS)
-    if len(pooled) != 16 or pool_tokens != task_tokens or len(pool_pids) != 1:
+    if pool_tokens != task_tokens or len(pool_pids) != 1:
         raise AssertionError(f"the actor pool's rows differ from the tasks' (pids {pool_pids})")
     if any(total.values()):
         raise AssertionError(f"flash launches in the data workers: {flash}")
@@ -3811,8 +3865,7 @@ def main() -> int:
     phase_trainer_dp2(card)
     phase_dryrun(card)
     data_trainer_launches = phase_data_trainer(card, train_losses, train_tokens)
-    # after every phase that needs the card: the task workers' cached
-    # weights stay until the runtime's shutdown
+    # after every phase that needs the card: its workers lease the card
     data_batch_launches = phase_data_batch(card)
     import ray_tpu_torch
 

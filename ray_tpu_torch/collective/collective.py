@@ -66,7 +66,8 @@ def init_collective_group(
     the GCS KV of the runtime this process is attached to (a worker's, or
     the driver's after ``ray_tpu_torch.init``): rank 0 publishes a store's
     address under the group's key, the others poll for it up to 60 s
-    (``TimeoutError`` after)."""
+    (``TimeoutError`` after), and rank 0 deletes the key once every rank
+    has connected."""
     from ray_tpu_torch.core import api
 
     t0 = time.perf_counter()

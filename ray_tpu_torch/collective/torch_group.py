@@ -21,10 +21,11 @@ given, else through the GCS KV of the port's runtime
 picks a port no other process holds and no "free port" is probed and
 bound later (a race between concurrent groups), then publishes the
 store's address under ``collective:<group>:coordinator``; the other ranks
-poll for it and connect. Unlike a file store, this needs no filesystem
-that every rank shares. NCCL moves CUDA tensors (numpy goes through this
-process's card); gloo moves host tensors, so a CUDA tensor given to a
-gloo group is staged through host memory and put back on its card.
+poll for it and connect, and rank 0 deletes the key once all have. Unlike
+a file store, this needs no filesystem that every rank shares. NCCL
+moves CUDA tensors (numpy goes through this process's card); gloo moves
+host tensors, so a CUDA tensor given to a gloo group is staged through
+host memory and put back on its card.
 """
 from __future__ import annotations
 
@@ -50,6 +51,9 @@ _DTYPES = [torch.float32, torch.float64, torch.int32, torch.int64, torch.uint8, 
 
 
 COORDINATOR_NS = "collective"
+# a store key each rank > 0 sets once connected (init_process_group's own
+# keys sit under a prefix, so these never meet them)
+_JOINED = "rendezvous/joined/{}"
 
 
 def coordinator_key(group_name: str) -> str:
@@ -64,7 +68,9 @@ def maybe_init_distributed(gcs_call: Callable, group_name: str, world_size: int,
     exists. Rank 0 binds a ``TCPStore`` on ``host`` (the address the
     runtime uses for this node) at a port the kernel picks, and publishes
     ``host:port``; the others poll the key every 0.1 s for up to
-    ``timeout_s`` (``TimeoutError`` after) and connect to it. Then
+    ``timeout_s`` (``TimeoutError`` after) and connect to it. Rank 0
+    deletes the key once every rank has connected (waiting up to
+    ``timeout_s``), so the name can be met under again. Then
     ``torch.distributed`` starts on the store (NCCL or gloo).
     ``gcs_call(method, payload)`` is a synchronous GCS call."""
     if dist.is_initialized():
@@ -76,6 +82,10 @@ def maybe_init_distributed(gcs_call: Callable, group_name: str, world_size: int,
                               timeout=connect)
         gcs_call("kv_put", {"ns": COORDINATOR_NS, "key": key,
                             "value": f"{host}:{store.port}".encode()})
+        # once every rank holds the store, the address goes: a later group
+        # of the same name must never read this one's (closed) port
+        store.wait([_JOINED.format(r) for r in range(1, world_size)], connect)
+        gcs_call("kv_del", {"ns": COORDINATOR_NS, "key": key})
     else:
         deadline = time.monotonic() + timeout_s
         addr = None
@@ -91,6 +101,7 @@ def maybe_init_distributed(gcs_call: Callable, group_name: str, world_size: int,
         coord_host, port = addr.rsplit(":", 1)
         store = dist.TCPStore(coord_host, int(port), world_size, is_master=False,
                               timeout=connect)
+        store.set(_JOINED.format(rank), b"1")
     # connecting waits timeout_s; the group's own waits (a rank that
     # reaches its first collective late) get torch's default
     store.set_timeout(dist.default_pg_timeout)

@@ -57,13 +57,16 @@ class Dataset:
                     compute=None,
                     fn_constructor_args: tuple = (),
                     fn_constructor_kwargs: dict | None = None,
-                    num_cpus: float = 1.0) -> "Dataset":
+                    num_cpus: float = 1.0,
+                    num_gpus: float | None = None) -> "Dataset":
         """Apply fn to whole blocks rendered as ``batch_format``
         (ref: dataset.py map_batches). batch_size re-chunks first when
         given. ``compute=ActorPoolStrategy(size=N)`` (or a callable CLASS
         as fn) runs the map on a pool of stateful actors — construct the
         class once per actor and amortize model loads across blocks
-        (ref: actor_pool_map_operator.py)."""
+        (ref: actor_pool_map_operator.py). ``num_gpus``: the cards each
+        map task or actor leases from the runtime, which then runs no
+        more of them at once than its cards hold."""
         kwargs = fn_kwargs or {}
         ds = self
         if batch_size is not None:
@@ -91,13 +94,14 @@ class Dataset:
                 max_tasks_per_actor=strategy.max_tasks_in_flight_per_actor,
                 fn_constructor_args=fn_constructor_args,
                 fn_constructor_kwargs=fn_constructor_kwargs,
-                num_cpus=num_cpus)))
+                num_cpus=num_cpus, num_gpus=num_gpus)))
 
         def apply(block):
             batch = BlockAccessor.for_block(block).to_batch(batch_format)
             return fn(batch, **kwargs) if kwargs else fn(batch)
 
-        return Dataset(ds._plan.with_op(MapBlocks("map_batches", apply)))
+        return Dataset(ds._plan.with_op(MapBlocks("map_batches", apply,
+                                                  num_gpus=num_gpus)))
 
     def map(self, fn: Callable) -> "Dataset":
         def apply(block):

@@ -108,10 +108,14 @@ class MapBlocks(Operator):
     (ref: execution/operators/map_operator.py)."""
 
     def __init__(self, name: str, fn: Callable, max_in_flight: int | None = None,
-                 preserves_rows: bool = False, indexed: bool = False):
+                 preserves_rows: bool = False, indexed: bool = False,
+                 num_gpus: float | None = None):
         self.name = name
         self.fn = fn
         self.max_in_flight = max_in_flight or DEFAULT_MAX_IN_FLIGHT
+        # cards each task leases: the runtime then runs no more of them at
+        # once than the cards hold, whatever max_in_flight allows
+        self.num_gpus = num_gpus
         # optimizer metadata (data/optimizer.py): True only when the op
         # emits exactly one output row per input row (map, add_column,
         # select_columns — NOT filter/flat_map/map_batches)
@@ -122,14 +126,18 @@ class MapBlocks(Operator):
     def transform(self, refs, stats):
         inflight: collections.deque = collections.deque()
         t0 = time.perf_counter()
+        apply, apply_indexed = _apply_op, _apply_op_indexed
+        if self.num_gpus:
+            apply = apply.options(num_gpus=self.num_gpus)
+            apply_indexed = apply_indexed.options(num_gpus=self.num_gpus)
         try:
             for i, ref in enumerate(refs):
                 while len(inflight) >= self.max_in_flight:
                     yield inflight.popleft()  # ordered: wait for the head
                 if self.indexed:
-                    inflight.append(_apply_op_indexed.remote(self.fn, i, ref))
+                    inflight.append(apply_indexed.remote(self.fn, i, ref))
                 else:
-                    inflight.append(_apply_op.remote(self.fn, ref))
+                    inflight.append(apply.remote(self.fn, ref))
                 stats.tasks += 1
             while inflight:
                 yield inflight.popleft()
@@ -169,7 +177,7 @@ class ActorPoolMapBlocks(Operator):
                  max_tasks_per_actor: int = 2,
                  fn_constructor_args: tuple = (),
                  fn_constructor_kwargs: dict | None = None,
-                 num_cpus: float = 1.0):
+                 num_cpus: float = 1.0, num_gpus: float | None = None):
         self.name = name
         self.fn_or_cls = fn_or_cls
         self.size = max(1, int(size))
@@ -177,10 +185,12 @@ class ActorPoolMapBlocks(Operator):
         self.fn_constructor_args = tuple(fn_constructor_args)
         self.fn_constructor_kwargs = dict(fn_constructor_kwargs or {})
         self.num_cpus = num_cpus
+        self.num_gpus = num_gpus  # cards each actor leases
 
     def transform(self, refs, stats):
         t0 = time.perf_counter()
-        WorkerCls = ray_tpu_torch.remote(_MapWorker).options(num_cpus=self.num_cpus)
+        WorkerCls = ray_tpu_torch.remote(_MapWorker).options(num_cpus=self.num_cpus,
+                                                             num_gpus=self.num_gpus)
         actors = [
             WorkerCls.remote(
                 self.fn_or_cls, self.fn_constructor_args,

@@ -99,14 +99,18 @@ def _compose(f: Callable, g: Callable) -> Callable:
 
 
 def map_fusion(plan: "ex.Plan") -> "ex.Plan":
+    """Adjacent maps that lease the same cards (none, most often) become
+    one task per block."""
     ops = list(plan.ops)
     out: list = []
     for op in ops:
-        if out and _is_map(op) and _is_map(out[-1]):
+        if (out and _is_map(op) and _is_map(out[-1])
+                and op.num_gpus == out[-1].num_gpus):
             prev = out[-1]
             fused = ex.MapBlocks(
                 f"{prev.name}->{op.name}", _compose(prev.fn, op.fn),
-                max_in_flight=min(prev.max_in_flight, op.max_in_flight))
+                max_in_flight=min(prev.max_in_flight, op.max_in_flight),
+                num_gpus=op.num_gpus)
             fused.preserves_rows = (
                 getattr(prev, "preserves_rows", False)
                 and getattr(op, "preserves_rows", False))
@@ -140,8 +144,10 @@ class _FusedRead:
 def read_map_fusion(plan: "ex.Plan") -> "ex.Plan":
     """Fold a leading MapBlocks into the read tasks: the transform runs in
     the same task (same worker, zero extra hop) as the read (ref:
-    rules/operator_fusion.py fusing MapOperator into the upstream Read)."""
-    if not plan.ops or not _is_map(plan.ops[0]) or not plan.read_tasks:
+    rules/operator_fusion.py fusing MapOperator into the upstream Read).
+    A map that leases cards stays a task of its own: reads lease none."""
+    if (not plan.ops or not _is_map(plan.ops[0]) or plan.ops[0].num_gpus
+            or not plan.read_tasks):
         return plan
     fn = plan.ops[0].fn
     return ex.Plan([_FusedRead(rt, fn) for rt in plan.read_tasks],

@@ -175,6 +175,9 @@ class TorchTrainer:
                 raise RuntimeError(f"a placement group of {n} x {resources} did not fit in "
                                    f"{ray_tpu_torch.available_resources()}")
             cls = ray_tpu_torch.remote(TrainWorker)
+            # one group name per fit (run_dir is unique) and per attempt: a
+            # rank never reads another fit's or a dead attempt's address
+            group = f"{os.path.basename(run_dir)}_g{attempt}"
             for rank in range(n):
                 workers.append(cls.options(
                     num_cpus=resources.get("CPU", 1.0),
@@ -182,7 +185,7 @@ class TorchTrainer:
                     placement_group=pg, placement_group_bundle_index=rank,
                     # poll() must be servable while run() blocks a thread
                     max_concurrency=2,
-                ).remote(rank, n, name, scaling.backend(), f"{name}_g{attempt}"))
+                ).remote(rank, n, name, scaling.backend(), group))
             resume = manager.latest() or self.resume_from_checkpoint
             spec = {"use_gpu": scaling.gpu(), "sys_path": self._loop_path,
                     "checkpoint": resume.path if resume else None, "staging_dir": staging}

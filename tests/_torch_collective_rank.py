@@ -12,7 +12,8 @@ runtime up (``init_method``: the explicit rendezvous wins). It runs every
 ``Communicator`` op (and the group's ``sendrecv``) on numpy arrays and on
 tensors, and writes ``<dir>/out_<rank>.npz``; ``tests/test_torch_collective.py``
 checks them against numpy. With a runtime it also writes the seconds of
-the rendezvous and whether the group's coordinator key is in the GCS KV.
+the rendezvous, the kind of store the world started on, and what the
+group's coordinator key holds in the GCS KV after the collectives.
 """
 import faulthandler
 import os
@@ -49,14 +50,15 @@ def main() -> int:
         world, rank, backend="gloo", group_name=G,
         init_method=None if mode == "gcs" else f"file://{work}/rdzv")
     if mode != "file":
-        from ray_tpu_torch.collective.torch_group import COORDINATOR_NS, coordinator_key
-        from ray_tpu_torch.core import api
+        import torch.distributed as dist
 
-        core = api.get_core()
-        key = core._run_sync(core.gcs.call("kv_get", {"ns": COORDINATOR_NS,
-                                                      "key": coordinator_key(G)}))
-        out["gcs_key"] = np.array(key.decode() if key else "")
         out["rendezvous_s"] = np.array(group.rendezvous_s)
+        # the store the world started on: a TCPStore through the GCS, the
+        # FileStore of an init_method
+        store = dist.distributed_c10d._get_default_store()
+        while isinstance(store, dist.PrefixStore):
+            store = store.underlying_store
+        out["store"] = np.array(type(store).__name__)
     for form, wrap in (("np", lambda a: a), ("pt", torch.from_numpy)):
         x = value(rank)
 
@@ -83,6 +85,16 @@ def main() -> int:
         else:
             put("recv", collective.recv(0, G))
             collective.send(wrap(np.arange(6, dtype=np.int64).reshape(2, 3)), 0, G)
+    if mode != "file":
+        # read after collectives that rank 0 joined: it returned from the
+        # rendezvous, and took the key out on the way
+        from ray_tpu_torch.collective.torch_group import COORDINATOR_NS, coordinator_key
+        from ray_tpu_torch.core import api
+
+        core = api.get_core()
+        key = core._run_sync(core.gcs.call("kv_get", {"ns": COORDINATOR_NS,
+                                                      "key": coordinator_key(G)}))
+        out["gcs_key"] = np.array(key.decode() if key else "")
     np.savez(os.path.join(work, f"out_{rank}.npz"), **out)
     collective.destroy_collective_group(G)
     if mode != "file":

@@ -46,8 +46,26 @@ def pipelines(data):
         return [data.BlockAccessor.for_block(b).to_batch("numpy")["id"].tolist()
                 for b in from_blocks.iter_blocks()]
 
+    def split_batches():
+        """Each consumer's batches of 16 from a 2-way streaming_split of a
+        from_numpy dataset of 5 blocks (a [100, 2] column and a flat one)."""
+        ds = data.from_numpy({"x": np.arange(200).reshape(100, 2), "y": np.arange(100.0)},
+                             parallelism=5)
+        return [list(it.iter_batches(batch_size=16)) for it in ds.streaming_split(2)]
+
+    def filtered_blocks():
+        """A filter that empties the first blocks, then a map over them."""
+        ds = data.range(100, parallelism=4).filter(lambda r: r["id"] >= 60)
+        ds = ds.map_batches(lambda b: {"id": b["id"], "n": np.full(len(b["id"]), len(b["id"]))})
+        return [data.BlockAccessor.for_block(b).num_rows() for b in ds.iter_blocks()], \
+            ds.take_all()
+
     rows = [{"g": (i * 7) % 13, "v": float(i * i % 17), "k": i % 5} for i in range(120)]
     return {
+        "split_batches": split_batches,
+        "filtered_blocks": filtered_blocks,
+        "iter_batches_leftover": lambda: list(data.range(250, parallelism=3).iter_batches(
+            batch_size=64)),
         "shuffle_simple_7": shuffled(200, -1, 7),
         "shuffle_simple_8": shuffled(200, -1, 8),
         "shuffle_blocks_7": shuffled(300, 6, 7),

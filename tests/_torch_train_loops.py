@@ -83,6 +83,14 @@ def actor_loop(config):
                   "device": str(train.get_device())})
 
 
+def group_loop(config):
+    """Sums rank + 1 over the attempt's collective group; reports the sum
+    and the group's name."""
+    ctx = train.get_context()
+    total = collective.allreduce(np.array(ctx.get_world_rank() + 1.0), ctx.collective_group)
+    train.report({"sum": float(total), "group": ctx.collective_group})
+
+
 def split_linear_loop(config):
     """``tests/test_data.py``'s streaming_split loop in torch: each rank
     pulls its DataIterator (``config["splits"][rank]``, a shard of one

@@ -42,7 +42,9 @@ def rt():
     ray_tpu_torch.shutdown()  # a runtime another module left in this process
     cfg = config.get_config()
     config.set_config(dataclasses.replace(cfg, worker_lease_timeout_s=1.0))
-    ray_tpu_torch.init(num_cpus=4)
+    # one card in the ledger (no CUDA here): maps that lease it run one
+    # at a time on a worker whose CUDA_VISIBLE_DEVICES names it
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1)
     yield ray_tpu_torch
     ray_tpu_torch.shutdown()
     config.set_config(cfg)
@@ -63,18 +65,45 @@ def jax_processor_rows(tmp_path_factory):
     return _torch_data_jax.run_once(tmp_path_factory, "_torch_batch_jax.py", timeout=200)
 
 
+class _Probed:
+    """A dataset whose ``map_batches`` wraps the mapped function in its
+    task: the task first empties its process's ``GENERATE_BATCHES``, and
+    every row it returns carries its pid and the rows of each generate
+    call the task made (``generate_rows``, one entry per call)."""
+
+    def __init__(self, ds):
+        self._ds = ds
+
+    def map_batches(self, fn, **kwargs):
+        def probed(batch, _fn=fn):
+            import os
+
+            from ray_tpu_torch.llm import batch as llm_batch
+
+            llm_batch.GENERATE_BATCHES.clear()
+            out = _fn(batch)
+            n = len(out["id"])
+            calls = np.array(llm_batch.GENERATE_BATCHES)
+            return dict(out, pid=np.full(n, os.getpid()),
+                        generate_rows=np.broadcast_to(calls, (n, len(calls))).copy())
+
+        return self._ds.map_batches(probed, **kwargs)
+
+
 def test_processor_matches_jax_generate(rt, models, jax_processor_rows):
     """10 rows at batch_size 4: three map tasks over blocks of 4, 3 and 3
-    rows (ray_tpu.data's repartition), each one generate call whose rows
-    equal JAX generate's over the same block and JAX's processor's rows
-    over ray_tpu.data, the other columns kept."""
+    rows (ray_tpu.data's repartition), each one generate call over its
+    whole block, whose rows equal JAX generate's over the same block and
+    JAX's processor's rows over ray_tpu.data, the other columns kept."""
     jcfg, jparams, tcfg, params = models
     rows = _torch_batch_jax.ROWS
     processor = build_llm_processor(tcfg, params=params, batch_size=_torch_batch_jax.BATCH_SIZE,
-                                    max_new_tokens=_torch_batch_jax.MAX_NEW)
+                                    max_new_tokens=_torch_batch_jax.MAX_NEW, device="cpu")
     blocks = [list(BlockAccessor.for_block(b).rows())
-              for b in processor(from_items(rows)).iter_blocks()]
+              for b in processor(_Probed(from_items(rows))).iter_blocks()]
     assert [len(b) for b in blocks] == [4, 3, 3]
+    for b in blocks:  # each task made one generate call, over its block
+        assert [r["generate_rows"].tolist() for r in b] == [[len(b)]] * len(b)
     out = [r for b in blocks for r in b]
     want = [t for b in blocks for t in jgenerate(
         jparams, jcfg, [r["prompt_tokens"].tolist() for r in b],
@@ -149,3 +178,35 @@ def test_cached_params_keyed_by_config_and_device(rt, models):
     assert [r["completion_tokens"].tolist() for r in out] == \
         tgeneration.generate(a, tcfg, [[5, 6]] * 2, max_new_tokens=2)
     tbatch._param_cache.clear()
+
+
+def test_card_maps_lease_a_card_each(rt, models):
+    """A map of num_gpus=1 leases the runtime's one card for each task:
+    the 6 blocks run one after another (the executor keeps 8 in flight,
+    the lease allows one), in one worker that keeps the lease and sees
+    the card as CUDA_VISIBLE_DEVICES, so a processor's weights are drawn
+    once. The processor asks for this on a CUDA device, not on the CPU."""
+    def _leased_span(batch):
+        """The task's pid, CUDA_VISIBLE_DEVICES and the perf_counter span it
+        ran for (0.3 s), on each of its rows."""
+        import os
+        import time
+
+        t0 = time.perf_counter()
+        time.sleep(0.3)
+        n = len(batch["i"])
+        return {"i": batch["i"], "pid": np.full(n, os.getpid()),
+                "cards": np.full(n, os.environ.get("CUDA_VISIBLE_DEVICES", "")),
+                "t0": np.full(n, t0), "t1": np.full(n, time.perf_counter())}
+
+    ds = from_items([{"i": i} for i in range(6)], parallelism=6)
+    out = ds.map_batches(_leased_span, num_gpus=1).take_all()
+    assert [r["i"] for r in out] == list(range(6))
+    assert {str(r["cards"]) for r in out} == {"0"}
+    assert len({int(r["pid"]) for r in out}) == 1
+    spans = sorted((float(r["t0"]), float(r["t1"])) for r in out)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:])), spans
+    _, _, tcfg, _ = models
+    for device, cards in ((None, 1), ("cuda", 1), ("cpu", None)):
+        ds = build_llm_processor(tcfg, device=device)(from_items([{"prompt_tokens": [1]}]))
+        assert ds._plan.ops[-1].num_gpus == cards

@@ -176,9 +176,10 @@ def test_sendrecv_needs_two_ranks():
 def test_gcs_rendezvous_runs_every_op(runtime_outs):
     """Through the GCS KV, or an explicit init_method with the runtime up:
     every op gives numpy's result (allreduce, allgather, broadcast and
-    reducescatter among them, JAX's distributed assertions), and only the
-    GCS rendezvous publishes rank 0's store address under the group's
-    key (the explicit init_method wins)."""
+    reducescatter among them, JAX's distributed assertions). Only the GCS
+    rendezvous starts the world on rank 0's TCPStore (the explicit
+    init_method wins, with its FileStore), and its key is gone once the
+    ranks have met, so a later group of the name cannot read it."""
     mode, got = runtime_outs
     for rank, out in enumerate(got):
         for form in ("np", "pt"):
@@ -186,13 +187,9 @@ def test_gcs_rendezvous_runs_every_op(runtime_outs):
                 np.testing.assert_allclose(out[f"{form}/{name}"], want, rtol=1e-6, atol=1e-6,
                                            err_msg=f"{mode} rank {rank} {form} {name}")
         assert float(out["rendezvous_s"]) >= 0
-    keys = {str(out["gcs_key"]) for out in got}
-    if mode == "gcs":
-        (addr,) = keys  # both ranks read the one address
-        host, port = addr.rsplit(":", 1)
-        assert host and int(port) > 0
-    else:
-        assert keys == {""}
+    stores = {str(out["store"]) for out in got}
+    assert stores == ({"TCPStore"} if mode == "gcs" else {"FileStore"})
+    assert {str(out["gcs_key"]) for out in got} == {""}
 
 
 def test_rank_times_out_without_coordinator(rt):

@@ -8,7 +8,9 @@ outputs against the JAX package's for the same inputs: per-block functions
 optimizer rewrites and ``explain``) directly, since JAX's modules import
 without its runtime; the seeded pipelines (shuffles, samples) and the
 barrier ops, end to end, against ``tests/_torch_data_jax.py`` run on a JAX
-runtime in a subprocess. Rows are compared exactly.
+runtime in a subprocess, and again from a process whose pyarrow and
+pandas are hidden (``tests/_torch_data_noarrow.py``: numpy-dict blocks, as
+on the card's host). Rows are compared exactly.
 
 One port runtime serves the module (``ray_tpu_torch.init``); idle leases go
 back after 1 s.
@@ -540,6 +542,44 @@ def test_pipeline_rows_match_jax(rt, jax_rows, case):
     rows equal ray_tpu.data's, in order, for the same inputs and seeds."""
     got = _torch_data_jax.plain(_torch_data_jax.pipelines(rtd)[case]())
     assert got == jax_rows[case]
+
+
+@pytest.fixture(scope="module")
+def noarrow_rows(tmp_path_factory):
+    """``tests/_torch_data_noarrow.py``'s output: the pipelines on the port
+    in a process, and task workers, where pyarrow and pandas raise
+    ImportError (a directory of both, first on PYTHONPATH)."""
+    import json
+    import subprocess
+    import sys
+
+    work = tmp_path_factory.mktemp("noarrow")
+    for name in ("pyarrow", "pandas"):
+        (work / name).mkdir()
+        (work / name / "__init__.py").write_text(f"raise ImportError('{name} is hidden')\n")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(work), ROOT, os.path.join(ROOT, "tests")]))
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "tests", "_torch_data_noarrow.py"),
+                           str(work / "out.json")], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=100)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return json.loads((work / "out.json").read_text())
+
+
+@pytest.mark.parametrize("case", sorted(_torch_data_jax.pipelines(None)))
+def test_pipeline_rows_without_arrow_match_jax(noarrow_rows, jax_rows, case):
+    """Where pyarrow and pandas are missing, as on the card's host, every
+    tabular block stays a numpy dict in the driver and in the task
+    workers, and the pipelines give ray_tpu.data's rows all the same: the
+    shuffles, samples, sorts, aggregates, zip, unique, repartition,
+    streaming_split's batches and iter_batches' leftovers. The hash join,
+    on Arrow in both packages, raises ImportError instead."""
+    assert noarrow_rows["_driver"] == [False, False, "dict"]
+    assert noarrow_rows["_worker"] == [False, "dict"]
+    if case == "join_outer":
+        assert noarrow_rows[case] == {"error": "ImportError"}
+    else:
+        assert noarrow_rows[case] == jax_rows[case]
 
 
 def _blocks():

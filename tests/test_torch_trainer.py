@@ -177,3 +177,29 @@ def test_card_shares_name_one_card_each(monkeypatch):
         half._gpu_ids(6)
     cpu = TorchTrainer(loops.answer_loop, scaling_config=ScalingConfig(use_gpu=False))
     assert cpu._gpu_ids(1) is None
+
+
+def test_fits_of_one_name_meet_apart(tmp_path):
+    """Two fits under one ``RunConfig(name=...)``, back to back on one
+    runtime: each meets through the GCS KV under a group of its own, and
+    no coordinator address stays behind for a later fit to read."""
+    import ray_tpu_torch
+    from ray_tpu_torch.collective.torch_group import COORDINATOR_NS
+
+    groups = []
+    for i in range(2):
+        result = TorchTrainer(
+            loops.group_loop, train_loop_config={},
+            scaling_config=ScalingConfig(num_workers=2, use_gpu=False,
+                                         collective_backend="gloo"),
+            run_config=RunConfig(name="again", storage_path=str(tmp_path / f"c{i}")),
+        ).fit()
+        assert result.error is None, result.error
+        reports = result.metrics_history
+        assert sorted(m["sum"] for m in reports) == [3.0, 3.0]
+        groups.append({m["group"] for m in reports})
+    assert all(len(g) == 1 for g in groups) and groups[0] != groups[1]
+    core = ray_tpu_torch.get_core()
+    left = core._run_sync(core.gcs.call("kv_keys", {"ns": COORDINATOR_NS,
+                                                    "prefix": "collective:"}))
+    assert not [k for k in left if "again" in str(k)], left
