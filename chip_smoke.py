@@ -22,6 +22,27 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               llama_loss; the flash kernel must launch once per layer; logits
               against attn_impl="plain" (relative L2 <= 3e-2), and a 2-layer
               float32 run at full width (<= 1e-4).
+   dag_pipeline — compiled graphs (ray_tpu_torch.dag) on the port's runtime:
+              two stage actors sharing the card (num_gpus=0.5 each) draw
+              that model's seed-0 weights and keep their halves (stage 0 the
+              embedding and layers 0-15, stage 1 layers 16-31, the norm and
+              the head); InputNode -> stage0.forward -> stage1.forward,
+              compiled with 64 MiB channels, takes the tokens [2, 2048] and
+              passes the bf16 hidden state [2, 2048, 4096] (32 MiB) between
+              the stages to float32 logits [2, 128256] at the last position.
+              Each stage must launch the flash forward 16 times per execute
+              (counted in the stage from 0), the logits must agree with the
+              driver's llama_forward within 1e-6 relative L2 (the same ops
+              on the same weights; printed: the forward phase's bound 3e-2
+              and whether bitwise), and a CollectiveNode (allreduce_bind
+              over a float32 CUDA tensor in a gloo group met through the
+              GCS KV) must give the sum on both stages. Printed: ms per
+              iteration over 8 executes with overlap on and off and through
+              a chain of .remote calls; each stage's period, input wait,
+              compute and forward from its loop's timeline; the hidden
+              state's hop (stage 0's write + stage 1's read, sequential
+              run) in ms and GB/s; the stages' and the card's memory; the
+              phase's seconds, by part.
 4. serving  — ContinuousBatchingEngine at the same width answers 6 concurrent
               requests in the planned loop (eos_id None) and the reactive loop
               (an eos_id); in float32 at 2 layers its greedy tokens must equal
@@ -98,8 +119,8 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               card within 2e-5 at float32; the group is destroyed.
 9. runtime  — the port's task/actor runtime (ray_tpu_torch.init with an
               8 GiB shm arena, idle leases returned after 1 s):
-              cluster_resources() reports GPU 1.0; a 1 GiB bf16 tensor on the
-              card and a 1 GiB float32 CPU tensor each go through put/get,
+              cluster_resources() reports GPU 1.0; a 256 MiB bf16 tensor on
+              the card and a 256 MiB float32 CPU tensor each go through put/get,
               into a num_gpus=1 actor as a task argument (restored on its
               card, or on its host) and back out of it as a return, bytes
               equal each time, with put, get, argument and round-trip GB/s
@@ -201,21 +222,34 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               gradients into whole steps); ms per float32 update on the card
               and on the host CPU. The port's CartPole-v1, 2000 random-action
               steps of 8 envs, twice from one seed, must give equal bytes.
+    The rllib phases 20-23 run on a runtime the script starts after phase
+    19: each algorithm's env runners are actors of it (num_cpus=0.5, no
+    card: they sample on the host CPU, one intra-op thread), each must
+    run in a process other than the driver's; PPO's learners are actors
+    leasing the card (1/num_learners of it); the other algorithms learn
+    in the driver, on the card.
 20. rllib_ppo — PPO on the port's CartPole-v1 at test_ppo_learns_cartpole's
               settings (2 runners x 4 envs x 128 steps, lr 1e-3, 4 epochs x
               4 minibatches, hidden 64), 8 iterations: best mean return >
-              max(60, 1.5 x first), params on cuda; per iteration sample ms,
-              update ms and env steps/s.
-21. rllib_offpolicy — DQN, IMPALA, APPO and SAC at their JAX tests'
-              settings and iteration counts, each held to its test's bar,
-              and the two-agent runner (TwoAgentTag) with per-policy PPO.
-22. rllib_offline — collect_rollouts -> OfflineData -> BC (agreement with
-              the expert > 0.8) and CQL (prefers the logged action on > 0.9).
-23. rllib_learners — two Learner ranks in two processes sharing the card
-              over gloo, one with an empty shard: equal params and Adam
-              moments after the sync (the mean of the update and the initial
-              state), step counts 16 and 0.
-              Each rllib phase reads the flash kernels' launches: 0.
+              max(60, 1.5 x first), params on cuda; per iteration sample ms
+              (the slowest runner's, read in the runners), update ms (the
+              rest of train()) and env steps/s.
+21. rllib_offpolicy — DQN, IMPALA (standing sample requests), APPO and SAC
+              at their JAX tests' settings and iteration counts, each held
+              to its test's bar, and the two-agent runner (TwoAgentTag, in
+              process) with per-policy PPO.
+22. rllib_offline — collect_rollouts -> OfflineData (its shard read by a
+              task of the runtime) -> BC (agreement with the expert > 0.8)
+              and CQL (prefers the logged action on > 0.9).
+23. rllib_learners — PPO with num_learners=2: two Learner actors sharing
+              the card (GPU 0.5 each) in a gloo group met through the GCS
+              KV; driven directly, one updates on a fixed rollout and one on
+              an empty shard: equal params and Adam moments after the sync
+              (the mean of the update and the initial state), step counts
+              16 and 0; then one train() through both.
+              Each rllib phase reads the flash kernels' launches where its
+              updates run, counted there from 0 (the driver's, and in
+              rllib_ppo and rllib_learners each learner actor's): 0.
 
 Then the script's wall seconds, the {"kernels": [...]} line, the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -241,7 +275,14 @@ SEED = 0
 TRAIN_STEPS = 20  # timed train steps: their median is the step time
 
 
+_STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``t``, the seconds since the
+    script started, so consecutive lines give each phase's time."""
+    if "phase" in obj:
+        obj = {**obj, "t": round(time.perf_counter() - _STARTED, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -641,6 +682,287 @@ def phase_forward(card: str, kernels, cfg, params, tokens):
         if not err32 <= 1e-4:
             raise AssertionError(f"f32 forward disagrees with plain attention: {err32}")
     return launches, cfg32, params32
+
+
+DAG_STORE_BYTES = 2 << 30  # a closed channel keeps its cell: two graphs of 64 MiB cells
+DAG_ITERS = 8  # timed executes per mode
+DAG_BUFFER = 64 << 20  # the hidden state is 32 MiB
+DAG_TOL = 3e-2  # the forward phase's bf16 bound, printed as the phase's tol
+# the stages run the in-process forward's ops on the same weights and
+# shapes: anything above rounding noise is a dropped or repeated layer or a
+# damaged hop
+DAG_EXACT_TOL = 1e-6
+
+
+class LlamaStage:
+    """One stage actor of dag_pipeline: it draws the forward phase's seed-0
+    weights on its card (the same generator, so the same draws) and keeps
+    its half (llama_stage_params). forward() counts the flash launches of
+    each call and times it (synchronised, on the host clock); scaled()
+    feeds the collective check."""
+
+    def __init__(self, stage: int, n_stages: int):
+        import torch
+
+        from ray_tpu_torch.models.llama import LlamaConfig, llama_init, llama_stage_params
+
+        if not torch.cuda.is_available():
+            raise RuntimeError("a dag_pipeline stage has no CUDA device")
+        _no_tf32()
+        self.cfg = LlamaConfig.llama3_8b()
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        params = llama_init(g, self.cfg, "cuda")
+        self.part = llama_stage_params(params, self.cfg, stage, n_stages)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.last = stage == n_stages - 1
+        self.per_forward: list[int] = []
+        self.forward_ms: list[float] = []
+
+    def forward(self, x):
+        """Tokens or the previous stage's hidden state in; the hidden state
+        out, or (the last stage) the float32 logits at the last position."""
+        import torch
+
+        from ray_tpu_torch import kernels
+        from ray_tpu_torch.models.llama import llama_stage_forward
+
+        n0 = kernels.launches().get("flash_attention_fwd", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = llama_stage_forward(self.part, x, self.cfg, attn_impl="auto",
+                                      last_only=self.last)
+            out = out[:, 0].float() if self.last else out
+        torch.cuda.synchronize()
+        self.forward_ms.append((time.perf_counter() - t0) * 1e3)
+        self.per_forward.append(kernels.launches().get("flash_attention_fwd", 0) - n0)
+        return out
+
+    def reset_launches(self) -> bool:
+        from ray_tpu_torch import kernels
+
+        kernels.LAUNCHES.clear()
+        self.per_forward, self.forward_ms = [], []
+        return True
+
+    def launches(self) -> list:
+        return list(self.per_forward)
+
+    def forward_times(self) -> list:
+        return list(self.forward_ms)
+
+    def info(self) -> dict:
+        import torch
+
+        return {"pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "name": torch.cuda.get_device_name(0),
+                "allocated_gb": torch.cuda.memory_allocated() / 2**30,
+                "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+                "foreign": _foreign_modules()}
+
+    def setup_group(self, world: int, rank: int, group: str) -> bool:
+        from ray_tpu_torch import collective
+
+        # no init_method: the stages meet through the runtime's GCS KV
+        collective.init_collective_group(world, rank, backend="gloo", group_name=group)
+        return True
+
+    def scaled(self, x, k):
+        import torch
+
+        return torch.full((1024,), float(x) * k, dtype=torch.float32, device="cuda")
+
+
+def _dag_run(compiled, tokens, iters: int) -> tuple[list, float]:
+    """``iters`` executes with two in flight: (the results, ms per
+    iteration on the host clock)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refs = [compiled.execute(tokens) for _ in range(min(2, iters))]
+    outs = []
+    for _ in range(iters - len(refs)):
+        refs.append(compiled.execute(tokens))
+        outs.append(refs.pop(0).get(timeout=300))
+    outs += [r.get(timeout=300) for r in refs]
+    torch.cuda.synchronize()
+    return outs, (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _dag_loop_times(compiled, stages, forward_ms, overlap: bool) -> dict:
+    """Per stage, from its loop's timeline (its first iteration, the
+    warm-up, left out) and its forward()'s own times: medians in ms of the
+    iteration period, the wait for its inputs (from the previous
+    iteration's end to the inputs in hand), the compute (method call, and
+    sequentially the channel write) and the forward alone. Sequentially,
+    the 32 MiB hop: stage 0's write (its compute less its forward) plus
+    stage 1's read (from the later of its iteration's start and stage 0's
+    write ending to the value in hand; both loops stamp the host's one
+    monotonic clock)."""
+    import statistics
+
+    med = statistics.median
+    lines = [compiled.loop_results[s.actor_id.binary().hex()]["timeline"][1:1 + DAG_ITERS]
+             for s in stages]
+    out = {}
+    for i, (line, fwd) in enumerate(zip(lines, forward_ms)):
+        ready = [max(start, read) for read, start, _ in line]
+        out[f"stage{i}"] = {
+            "period_ms": med((b[2] - a[2]) * 1e3 for a, b in zip(line, line[1:])),
+            "input_wait_ms": med((r - a[2]) * 1e3 for a, r in zip(line, ready[1:])),
+            "compute_ms": med((t[2] - r) * 1e3 for t, r in zip(line, ready)),
+            "forward_ms": med(fwd)}
+    if not overlap:
+        (l0, l1), (f0, _) = lines, forward_ms
+        write = med((end - max(read, start)) * 1e3 - f for (read, start, end), f in zip(l0, f0))
+        read = med((b[0] - max(b[1], a[2])) * 1e3 for a, b in zip(l0, l1))
+        out["hop"] = {"write_ms": write, "read_ms": read, "ms": write + read}
+    return out
+
+
+def phase_dag_pipeline(card: str, cfg, params, tokens) -> dict:
+    """Compiled graphs on the card: two LlamaStage actors of the port's
+    runtime sharing the card (num_gpus=0.5 each), stage 0 the embedding and
+    layers 0-15, stage 1 layers 16-31, the norm and the head of the forward
+    phase's Llama-3-8B-width bf16 model. InputNode -> stage0.forward ->
+    stage1.forward, compiled with 64 MiB channels: tokens [2, 2048] in, the
+    bf16 hidden state [2, 2048, 4096] (32 MiB) between the stages, float32
+    logits [2, 128256] at the last position out. Each stage must launch the
+    flash forward 16 times per execute; the logits must agree with the
+    driver's llama_forward within DAG_EXACT_TOL (relative L2; the same
+    ops on the same weights; printed: DAG_TOL, the forward phase's bound,
+    and whether bitwise equal). Printed: ms per iteration over DAG_ITERS
+    executes with overlap on and off and through a chain of .remote calls;
+    each stage's iteration period, input wait, compute and forward from
+    its loop's timeline (_dag_loop_times), and from the sequential run the
+    hop of the hidden state (write + read) and its GB/s; the card's
+    memory; the seconds of each part. Then a CollectiveNode: both stages
+    allreduce a float32 CUDA tensor in a gloo group met through the GCS KV;
+    both outputs must equal the sum. Returns the flash launches of the
+    timed overlap run, by stage."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode, allreduce_bind
+    from ray_tpu_torch.models.llama import llama_forward
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name):  # seconds since the last part ended
+        now = time.perf_counter()
+        parts[name] = now - part.t
+        part.t = now
+    part.t = t_phase
+    inputs = tokens[:, :-1]
+    with torch.inference_mode():
+        ref = llama_forward(params, inputs, cfg, attn_impl="auto")[0][:, -1].float()
+    rt.init(object_store_memory=DAG_STORE_BYTES)
+    part("reference_and_init")
+    try:
+        Stage = rt.remote(LlamaStage).options(num_gpus=0.5, num_cpus=1)
+        t0 = time.perf_counter()
+        stages = [Stage.remote(s, 2) for s in range(2)]
+        infos = rt.get([s.info.remote() for s in stages], timeout=600)
+        start_s = time.perf_counter() - t0
+        part("stage_start")
+        card_used_gb = (torch.cuda.mem_get_info()[1] - torch.cuda.mem_get_info()[0]) / 2**30
+        with InputNode() as inp:
+            dag = stages[1].forward.bind(stages[0].forward.bind(inp))
+        runs, per_execute, outs, loops = {}, {}, {}, {}
+        for overlap in (True, False):
+            compiled = dag.experimental_compile(buffer_size_bytes=DAG_BUFFER, overlap=overlap)
+            try:
+                first = compiled.execute(inputs).get(timeout=600)  # warm (cuBLAS, allocator)
+                rt.get([s.reset_launches.remote() for s in stages])
+                # the main path: the counts are read just after it
+                outs[overlap], runs[overlap] = _dag_run(compiled, inputs, DAG_ITERS)
+                per_execute[overlap] = rt.get([s.launches.remote() for s in stages])
+                forward_ms = rt.get([s.forward_times.remote() for s in stages])
+            finally:
+                compiled.teardown()
+            loops[overlap] = _dag_loop_times(compiled, stages, forward_ms, overlap)
+            part(f"graph_{'overlap' if overlap else 'sequential'}")
+        rt.get([s.reset_launches.remote() for s in stages])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain = [stages[1].forward.remote(stages[0].forward.remote(inputs))
+                 for _ in range(DAG_ITERS)]
+        chain_outs = rt.get(chain, timeout=600)
+        torch.cuda.synchronize()
+        chain_ms = (time.perf_counter() - t0) * 1e3 / DAG_ITERS
+        chain_launches = rt.get([s.launches.remote() for s in stages])
+        peak = rt.get([s.info.remote() for s in stages])
+        card_peak_gb = (torch.cuda.mem_get_info()[1] - torch.cuda.mem_get_info()[0]) / 2**30
+        part("remote_chain")
+
+        group = f"dag_stages_{os.getpid()}"
+        assert rt.get([s.setup_group.remote(2, r, group) for r, s in enumerate(stages)],
+                      timeout=300) == [True, True]
+        with InputNode() as inp:
+            r0, r1 = allreduce_bind([stages[0].scaled.bind(inp, 1.0),
+                                     stages[1].scaled.bind(inp, 10.0)], group_name=group)
+            col_dag = MultiOutputNode([r0, r1])
+        compiled = col_dag.experimental_compile()
+        try:
+            col = []
+            for i in range(3):
+                a, b = compiled.execute(float(i + 1)).get(timeout=120)
+                want = torch.full_like(a, (i + 1) * 11.0)
+                col.append(a.device.type == b.device.type == "cuda"
+                           and torch.equal(a, want) and torch.equal(b, want))
+        finally:
+            compiled.teardown()
+        part("collective")
+        del stages
+        gc.collect()
+    finally:
+        rt.shutdown()
+    part("shutdown")
+    logits = [first] + outs[True] + outs[False] + chain_outs
+    errs = [rel_l2(x, ref) for x in logits]
+    bitwise = all(torch.equal(x, ref) for x in logits)
+    hidden_bytes = inputs.shape[0] * inputs.shape[1] * cfg.d_model * 2
+    chan_bytes = hidden_bytes + inputs.numel() * inputs.element_size() + ref.numel() * 4
+    want_launches = cfg.n_layers // 2
+    launch_ok = all(per == [want_launches] * DAG_ITERS
+                    for runs_ in (per_execute[True], per_execute[False], chain_launches)
+                    for per in runs_)
+    out = {"phase": "dag_pipeline", "stages": 2, "layers_per_stage": want_launches,
+           "tokens": list(inputs.shape), "hidden_bytes": hidden_bytes,
+           "channel_bytes_per_iter": chan_bytes, "buffer_size_bytes": DAG_BUFFER,
+           "ms_per_iter_overlap": runs[True], "ms_per_iter_sequential": runs[False],
+           "ms_per_iter_remote_chain": chain_ms,
+           "loop_overlap": loops[True], "loop_sequential": loops[False],
+           "hop_ms": loops[False]["hop"]["ms"],
+           "hop_gb_per_s": hidden_bytes / loops[False]["hop"]["ms"] / 1e6,
+           "flash_launches_per_execute": {"overlap": per_execute[True],
+                                          "sequential": per_execute[False],
+                                          "remote_chain": chain_launches},
+           "logits_rel_l2_max": max(errs), "tol": DAG_TOL, "exact_tol": DAG_EXACT_TOL,
+           "bitwise_equal": bitwise,
+           "allreduce_sum_ok": col, "stage_start_s": start_s,
+           "stage_procs": [{k: i[k] for k in ("pid", "visible", "allocated_gb", "foreign")}
+                           for i in infos],
+           "stage_peak_gb": [i["peak_gb"] for i in peak],
+           "card_used_gb_after_start": card_used_gb, "card_used_gb_after_runs": card_peak_gb,
+           "driver_peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "seconds": time.perf_counter() - t_phase, "seconds_by_part": parts, "card": card}
+    emit(out)
+    if not launch_ok:
+        raise AssertionError(f"dag_pipeline launches {out['flash_launches_per_execute']}, "
+                             f"want {want_launches} per stage per execute")
+    if not max(errs) <= DAG_EXACT_TOL or not all(tuple(x.shape) == tuple(ref.shape)
+                                                 for x in logits):
+        raise AssertionError(f"dag_pipeline logits disagree with the forward: {errs}")
+    if not all(col) or len(col) != 3:
+        raise AssertionError(f"dag_pipeline allreduce: {col}")
+    if any(i["foreign"] for i in infos) or len({i["pid"] for i in infos}) != 2:
+        raise AssertionError(f"dag_pipeline stages: {infos}")
+    return {"stage0": sum(per_execute[True][0]), "stage1": sum(per_execute[True][1])}
 
 
 def serve(params, cfg, prompts, max_tokens, **engine_kw):
@@ -1986,7 +2308,10 @@ DP2_CFG = dict(vocab_size=32000, d_model=1024, n_layers=2, n_heads=8, n_kv_heads
 
 
 # ------------------------------------------------------------------ runtime
-RUNTIME_TENSOR_BYTES = 1 << 30  # one tensor through put/get, an argument and a return
+# one tensor through put/get, an argument and a return; by-value arguments
+# cross the RPC socket (ROADMAP Queue 3, 2), so the transfers are most of
+# the phase's time, and the script has a time limit
+RUNTIME_TENSOR_BYTES = 256 << 20
 RUNTIME_STORE_BYTES = 8 << 30  # the shm arena: a few such objects alive at once
 RUNTIME_REPS = 2  # each transfer twice: the first touches a cold arena
 
@@ -2072,7 +2397,7 @@ def _runtime_transfers(rt, actor, x, want_device: str) -> dict:
 
 def phase_runtime(card: str) -> None:
     """The port's task/actor runtime on the card's host: init reports the
-    card, 1 GiB tensors (bf16 on the card, float32 on the host) go into a
+    card, RUNTIME_TENSOR_BYTES tensors (bf16 on the card, float32 on the host) go into a
     GPU actor and back with their bytes equal, a num_gpus=1 task is pinned
     to the card, and no worker loads jax or ray_tpu. The runtime stays up
     for the trainer phases."""
@@ -3431,72 +3756,118 @@ def phase_rllib_parity(card: str) -> None:
         raise AssertionError(f"rllib_parity launched flash kernels: {kernels.launches()}")
 
 
-def rl_instrument(algo) -> dict:
-    """Record the host ms of each runner's ``sample`` (it ends in a copy to
-    the host, so the device work is inside); the caller times ``train()``
-    around it. Wraps instance attributes only."""
-    times = {"sample_ms": []}
+def rl_runner_stats(algo) -> list:
+    """Each runner actor's ``runner_stats`` (its pid and device, and the
+    seconds of its sample calls since the last read)."""
+    import ray_tpu_torch as rt
 
-    def wrap(fn):
-        def inner(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            times["sample_ms"].append((time.perf_counter() - t0) * 1e3)
-            return out
-        return inner
-
-    for r in algo.runners:
-        r.sample = wrap(r.sample)
-    return times
+    return rt.get([r.runner_stats.remote() for r in algo.runners], timeout=120)
 
 
 def rl_curve(algo, iters: int, steps_per_sample: int) -> dict:
     """``iters`` train() calls: per iteration the mean return, the sample
-    ms, the rest of train() (updates, replay, weight copies) as update ms,
-    and the env steps per second of sampling."""
+    ms (the slowest runner's; the runners sample in parallel), the rest of
+    train() (updates, replay, weight broadcasts) as update ms, and the env
+    steps per second of all runners; the runners' pids (each must differ
+    from this process's) and devices."""
     import numpy as np
     import torch
 
-    times = rl_instrument(algo)
+    stats = rl_runner_stats(algo)  # reset the runners' clocks
     rets, sample_ms, update_ms, rates = [], [], [], []
     for _ in range(iters):
-        n0 = len(times["sample_ms"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ret = algo.train()["episode_return_mean"]
         torch.cuda.synchronize()
         total = (time.perf_counter() - t0) * 1e3
-        s = sum(times["sample_ms"][n0:])
+        stats = rl_runner_stats(algo)
+        slowest = max(st["sample_s"] for st in stats) * 1e3
         rets.append(ret)
-        sample_ms.append(s)
-        update_ms.append(total - s)
-        rates.append(steps_per_sample * (len(times["sample_ms"]) - n0) / s * 1e3)
+        sample_ms.append(slowest)
+        update_ms.append(total - slowest)
+        rates.append(sum(steps_per_sample * st["samples"] / st["sample_s"]
+                         for st in stats if st["sample_s"] > 0))
     finite = [r for r in rets if not np.isnan(r)]
+    pids = [st["pid"] for st in stats]
     return {"returns": rets, "first": finite[0] if finite else None,
             "best": max(finite) if finite else 0.0, "sample_ms": sample_ms,
             "update_ms": update_ms, "env_steps_per_s": rates,
-            "device": next(algo.get_weights().parameters()).device.type}
+            "device": next(algo.get_weights().parameters()).device.type,
+            "runner_pids": pids, "runner_devices": [st["device"] for st in stats],
+            "runners_apart": os.getpid() not in pids and len(set(pids)) == len(pids)}
+
+
+def _rl_learner_probe():
+    """rllib's Learner with two methods more: reset_launches() sets its
+    process's kernel launch counts to 0, launches() reads them."""
+    from ray_tpu_torch.rllib.learner import Learner
+
+    class ProbedLearner(Learner):
+        def reset_launches(self) -> bool:
+            from ray_tpu_torch import kernels
+
+            kernels.LAUNCHES.clear()
+            return True
+
+        def launches(self) -> dict:
+            from ray_tpu_torch import kernels
+
+            return dict(kernels.launches())
+
+    return ProbedLearner
+
+
+def rl_build_probed(config):
+    """``config.build()`` with PPO's learner actors made from
+    _rl_learner_probe's class, config and arguments unchanged."""
+    from ray_tpu_torch.rllib import ppo
+
+    saved = ppo.Learner
+    ppo.Learner = _rl_learner_probe()
+    try:
+        return config.build()
+    finally:
+        ppo.Learner = saved
+
+
+def rl_learner_launches(algo, reset: bool = False) -> list:
+    """Each learner actor's kernel launches (after setting them to 0)."""
+    import ray_tpu_torch as rt
+
+    if reset:
+        rt.get([ln.reset_launches.remote() for ln in algo.learners], timeout=120)
+    return rt.get([ln.launches.remote() for ln in algo.learners], timeout=120)
 
 
 def phase_rllib_ppo(card: str) -> dict:
     """PPO on the port's CartPole-v1 at test_ppo_learns_cartpole's settings
     (2 runners x 4 envs x 128 steps, lr 1e-3, 4 epochs x 4 minibatches,
     hidden 64), 8 iterations on the card: best > max(60, 1.5 x first),
-    params on cuda, no flash launch."""
+    params on cuda, no flash launch in the driver or in the learner actor
+    (the runners sample on the host CPU, where no kernel launches)."""
     from ray_tpu_torch import kernels
     from ray_tpu_torch.rllib import PPOConfig
 
-    kernels.LAUNCHES.clear()
-    algo = (PPOConfig().environment("CartPole-v1")
-            .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
-                         rollout_fragment_length=128)
-            .training(lr=1e-3, minibatches=4, epochs=4, hidden=64).build())
+    algo = rl_build_probed(PPOConfig().environment("CartPole-v1")
+                           .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                                        rollout_fragment_length=128)
+                           .training(lr=1e-3, minibatches=4, epochs=4, hidden=64))
+    rl_learner_launches(algo, reset=True)
+    kernels.LAUNCHES.clear()  # the main path starts here
     run = rl_curve(algo, 8, 4 * 128)
-    flash = dict(kernels.launches())
+    learners = rl_learner_launches(algo)
+    algo.stop()
+    flash = collections.Counter(kernels.launches())
+    for counts in learners:
+        flash.update(counts)
+    flash = dict(flash)
     emit({"phase": "rllib_ppo", "iterations": 8, **run, "flash_launches": flash,
+          "learner_flash_launches": learners,
           "bar": "best > max(60, 1.5 x first)", "card": card})
-    if run["device"] != "cuda" or sum(flash.values()):
-        raise AssertionError(f"rllib_ppo ran on {run['device']}, flash {flash}")
+    if run["device"] != "cuda" or sum(flash.values()) or not run["runners_apart"]:
+        raise AssertionError(f"rllib_ppo ran on {run['device']}, runners {run['runner_pids']} "
+                             f"(driver {os.getpid()}), flash {flash}")
     if run["first"] is None or not run["best"] > max(60.0, 1.5 * run["first"]):
         raise AssertionError(f"PPO did not learn: first {run['first']}, best {run['best']}")
     return flash
@@ -3614,11 +3985,13 @@ def phase_rllib_offpolicy(card: str) -> dict:
     }
     out, failed = {}, []
     for name, (config, iters, steps, bar) in algos.items():
-        run = rl_curve(config().build(), iters, steps)
+        algo = config().build()
+        run = rl_curve(algo, iters, steps)
+        algo.stop()
         bar = bar or (lambda first, best: best > max(60.0, 1.5 * first))
         run["passed"] = run["first"] is not None and bar(run["first"], run["best"])
         out[name] = run
-        if not run["passed"] or run["device"] != "cuda":
+        if not run["passed"] or run["device"] != "cuda" or not run["runners_apart"]:
             failed.append(name)
     out["multi_agent"] = rl_multi_agent()
     if not out["multi_agent"]["passed"] or out["multi_agent"]["device"] != "cuda":
@@ -3642,8 +4015,9 @@ def phase_rllib_offline(card: str) -> dict:
     import torch
 
     from ray_tpu_torch import kernels
+    from ray_tpu_torch.core.ref import ObjectRef
     from ray_tpu_torch.rllib import BCConfig, CQLConfig, OfflineData, collect_rollouts, core
-    from ray_tpu_torch.rllib import write_rollouts
+    from ray_tpu_torch.rllib import offline, write_rollouts
 
     kernels.LAUNCHES.clear()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3653,7 +4027,21 @@ def phase_rllib_offline(card: str) -> dict:
         n = collect_rollouts("CartPole-v1", path, num_steps=384, num_envs=2, seed=0,
                              policy_params=expert, hidden=32)
         collect_s = time.perf_counter() - t0
-        data = OfflineData(path)
+        shard_refs = []
+        task = offline._read_shard
+
+        class ShardProbe:  # OfflineData's shard reads, as the runtime's tasks
+            def remote(self, p):
+                shard_refs.append(task.remote(p))
+                return shard_refs[-1]
+
+        offline._read_shard = ShardProbe()
+        try:
+            t0 = time.perf_counter()
+            data = OfflineData(path)
+            read_s = time.perf_counter() - t0
+        finally:
+            offline._read_shard = task
         bc = BCConfig().offline_data(path).training(lr=3e-3, batch_size=128,
                                                     updates_per_iter=80, hidden=32).build()
         bc_ms = []
@@ -3681,13 +4069,17 @@ def phase_rllib_offline(card: str) -> dict:
             q1 = cql.get_weights()["q1"](torch.as_tensor(cobs[:128], device="cuda")).cpu().numpy()
         prefer = float((q1[:, 0] > q1[:, 1]).mean())
     flash = dict(kernels.launches())
+    tasks = len(shard_refs) == 1 and isinstance(shard_refs[0], ObjectRef)
     emit({"phase": "rllib_offline", "transitions": n, "collect_s": collect_s,
+          "shard_tasks": len(shard_refs), "read_s": read_s,
           "bc_loss": result["loss"], "bc_agreement": agree, "bc_iter_ms": bc_ms,
           "bc_update_ms": [t / 80 for t in bc_ms], "cql_penalty": cresult["cql_penalty"],
           "cql_prefers_logged": prefer, "cql_iter_ms": cql_ms,
           "cql_update_ms": [t / 60 for t in cql_ms],
           "device": next(bc.get_weights().parameters()).device.type,
           "flash_launches": flash, "card": card})
+    if not tasks:
+        raise AssertionError(f"OfflineData read its shard through {shard_refs}, not a task")
     if not (n >= 384 and result["loss"] < 0.6 and agree > 0.8):
         raise AssertionError(f"BC: {n} transitions, loss {result['loss']}, agreement {agree}")
     if not (cresult["cql_penalty"] < 0.35 and prefer > 0.9):
@@ -3696,6 +4088,8 @@ def phase_rllib_offline(card: str) -> dict:
         raise AssertionError(f"rllib_offline launched flash kernels: {flash}")
     return flash
 
+
+RL_STORE_BYTES = 1 << 30  # rollouts, weight trees and offline shards
 
 RL_LEARNER = {"obs_dim": 4, "n_actions": 2, "hidden": 64, "lr": 1e-3, "epochs": 4,
               "minibatches": 4, "seed": SEED + 22, "collective_backend": "gloo"}
@@ -3714,69 +4108,51 @@ def _rl_learner_rollout():
             "last_value": np.zeros(N, np.float32)}
 
 
-def _rl_learner_state(ln) -> dict:
-    out = {}
-    for name, p in ln.module.named_parameters():
-        st = ln.opt.state[p]
-        out[f"param/{name}"] = p.detach().cpu().numpy()
-        out[f"exp_avg/{name}"] = st["exp_avg"].cpu().numpy()
-        out[f"exp_avg_sq/{name}"] = st["exp_avg_sq"].cpu().numpy()
-        out[f"step/{name}"] = st["step"].cpu().numpy()
-    return out
-
-
-def rl_learner_rank(rank: int, work: str) -> None:
-    """One of the rllib_learners phase's two ranks (run by
-    ``python -c "import chip_smoke; chip_smoke.rl_learner_rank(r, dir)"``):
-    a Learner on the card in a gloo group of 2; rank 0 updates on the
-    rollout, rank 1 on an empty shard; writes its state to
-    ``<work>/out_<rank>.npz``."""
+def phase_rllib_learners(card: str) -> dict:
+    """PPO with num_learners=2: two Learner actors of the runtime sharing
+    the card (num_gpus=0.5 each) in a gloo group met through the GCS KV
+    (NCCL refuses two ranks on one card). Driven directly, rank 0 updates on
+    a fixed rollout and rank 1 on an empty shard: after the sync both hold
+    equal params and Adam moments, equal to the mean of one local update
+    and the initial state computed here (1e-6), and their step counts
+    differ (16 and 0). Then one train() of the algorithm through both (its
+    one runner's rollout goes to rank 0, rank 1 joins the sync with none):
+    a finite loss, the learners still equal. The flash launches of both
+    learner actors over these runs, counted in each from 0: none. Returns
+    them, summed."""
     import numpy as np
 
-    from ray_tpu_torch.rllib import Learner
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import Learner, PPOConfig
 
-    _no_tf32()
-    config = dict(RL_LEARNER, device="cuda", init_method=f"file://{work}/rdzv")
-    ln = Learner(rank, 2, config, group_name="rl_learners")
-    result = ln.update([_rl_learner_rollout()] if rank == 0 else [])
-    np.savez(os.path.join(work, f"out_{rank}.npz"), samples=result["samples"],
-             device=next(ln.module.parameters()).device.type, **_rl_learner_state(ln))
-
-
-def phase_rllib_learners(card: str) -> None:
-    """Two Learner ranks in two processes sharing the card over gloo (NCCL
-    refuses two ranks on one card); rank 1 has an empty shard. After the
-    sync both hold equal params and Adam moments, equal to the mean of one
-    local update and the initial state computed here (1e-6), and their
-    step counts differ (16 and 0)."""
-    import tempfile
-
-    import numpy as np
-
-    from ray_tpu_torch.rllib import Learner
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as work:
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", f"import chip_smoke; chip_smoke.rl_learner_rank({r}, {work!r})"],
-            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
-        try:
-            logs = [p.communicate(timeout=240)[0].decode(errors="replace")[-3000:]
-                    for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        seconds = time.perf_counter() - t0
-        if any(p.returncode != 0 for p in procs):
-            raise AssertionError(f"rllib_learners ranks failed: {logs}")
-        outs = [dict(np.load(os.path.join(work, f"out_{r}.npz"))) for r in range(2)]
+    cfg = (PPOConfig().environment("CartPole-v1")
+           .env_runners(num_env_runners=1, num_envs_per_env_runner=4, rollout_fragment_length=128)
+           .learners(num_learners=2)
+           .training(lr=RL_LEARNER["lr"], epochs=RL_LEARNER["epochs"],
+                     minibatches=RL_LEARNER["minibatches"], hidden=RL_LEARNER["hidden"]))
+    cfg.seed = RL_LEARNER["seed"]
+    t0 = time.perf_counter()
+    algo = rl_build_probed(cfg)
+    build_s = time.perf_counter() - t0
+    rl_learner_launches(algo, reset=True)
+    t0 = time.perf_counter()
+    results = rt.get([algo.learners[0].update.remote([_rl_learner_rollout()]),
+                      algo.learners[1].update.remote([])], timeout=300)
+    update_s = time.perf_counter() - t0
+    states = rt.get([ln.get_state.remote() for ln in algo.learners], timeout=120)
+    outs = [st["tensors"] for st in states]
+    train = algo.train()
+    after = [st["tensors"] for st in rt.get([ln.get_state.remote() for ln in algo.learners],
+                                            timeout=120)]
+    learner_flash = rl_learner_launches(algo)
+    algo.stop()
+    flash = collections.Counter()
+    for counts in learner_flash:
+        flash.update(counts)
     config = dict(RL_LEARNER, device="cuda")
     idle, moved = Learner(0, 1, config), Learner(0, 1, config)
     moved.update([_rl_learner_rollout()])
-    want0, want1 = _rl_learner_state(idle), _rl_learner_state(moved)
+    want0, want1 = idle.get_state()["tensors"], moved.get_state()["tensors"]
     unequal, worst, steps = [], 0.0, {}
     for k in want0:
         kind = k.split("/")[0]
@@ -3785,16 +4161,26 @@ def phase_rllib_learners(card: str) -> None:
             continue
         if not np.array_equal(outs[0][k], outs[1][k]):
             unequal.append(k)
+        if not np.array_equal(after[0][k], after[1][k]):
+            unequal.append(f"after train: {k}")
         worst = max(worst, float(np.abs(outs[0][k] - (want0[k] + want1[k]) / 2).max()))
     emit({"phase": "rllib_learners", "ranks": 2, "backend": "gloo",
-          "samples": [int(o["samples"]) for o in outs], "devices": [str(o["device"]) for o in outs],
+          "samples": [r["samples"] for r in results],
+          "learners": [{"pid": st["pid"], "device": st["device"]} for st in states],
           "unequal_leaves": unequal, "max_abs_diff_from_mean": worst, "tol": 1e-6,
-          "steps": sorted(set(steps.values())), "seconds": seconds, "card": card})
+          "steps": sorted(set(steps.values())), "train_loss": train["loss"],
+          "train_ms": train["time_this_iter_s"] * 1e3, "build_s": build_s,
+          "update_s": update_s, "learner_flash_launches": learner_flash, "card": card})
     if unequal or not worst <= 1e-6:
         raise AssertionError(f"learner sync: unequal {unequal}, diff from the mean {worst}")
-    if set(steps.values()) != {(16.0, 0.0)} or any(str(o["device"]) != "cuda" for o in outs):
-        raise AssertionError(f"learner steps {set(steps.values())}, devices "
-                             f"{[o['device'] for o in outs]}")
+    if set(steps.values()) != {(16.0, 0.0)} or any(st["device"] != "cuda" for st in states):
+        raise AssertionError(f"learner steps {set(steps.values())}, learners {states}")
+    pids = {st["pid"] for st in states}
+    if len(pids) != 2 or os.getpid() in pids or not math.isfinite(train["loss"]):
+        raise AssertionError(f"learners {pids} (driver {os.getpid()}), loss {train['loss']}")
+    if sum(flash.values()):
+        raise AssertionError(f"rllib_learners' learner actors launched flash kernels: {flash}")
+    return dict(flash)
 
 
 def main() -> int:
@@ -3831,6 +4217,7 @@ def main() -> int:
           "params": tree_numel(params)})
     tokens = torch.randint(0, cfg.vocab_size, (2, 2049), generator=g, device="cuda")
     launches, cfg32, params32 = phase_forward(card, kernels, cfg, params, tokens)
+    dag_launches = phase_dag_pipeline(card, cfg, params, tokens)
     serve_launches, prompts, planned, planned_ttft, ref32 = phase_serving(
         card, kernels, cfg, params, cfg32, params32)
     phase_serving_int8(card, cfg, params, cfg32, params32, prompts, planned, ref32)
@@ -3873,11 +4260,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_rllib_parity(card)
+    # the RL drivers' runner actors, PPO's learner actors and the offline
+    # shard tasks run on a runtime of their own
+    ray_tpu_torch.init(object_store_memory=RL_STORE_BYTES)
     rl_launches = collections.Counter()
     rl_launches.update(phase_rllib_ppo(card))
     rl_launches.update(phase_rllib_offpolicy(card))
     rl_launches.update(phase_rllib_offline(card))
-    phase_rllib_learners(card)
+    rl_launches.update(phase_rllib_learners(card))
+    ray_tpu_torch.shutdown()
 
     replaces = {"flash_attention_fwd": "ray_tpu/ops/flash_attention.py:49",
                 "flash_attention_bwd_dq": "ray_tpu/ops/flash_attention.py:144",
@@ -3905,6 +4296,9 @@ def main() -> int:
                "serve_disagg_launches": serve_disagg_launches.get(name, 0),
                "data_trainer_launches": data_trainer_launches[name],
                "data_batch_launches": data_batch_launches.get(name, 0),
+               # both stages' launches over dag_pipeline's timed overlap executes
+               "dag_pipeline_launches": sum(dag_launches.values())
+               if name == "flash_attention_fwd" else 0,
                "rllib_launches": rl_launches[name], **k[name]}
         if name != "flash_attention_fwd":
             row["plain_and_library_cover"] = "dq+dkv"

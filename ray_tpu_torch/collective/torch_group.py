@@ -21,7 +21,8 @@ given, else through the GCS KV of the port's runtime
 picks a port no other process holds and no "free port" is probed and
 bound later (a race between concurrent groups), then publishes the
 store's address under ``collective:<group>:coordinator``; the other ranks
-poll for it and connect, and rank 0 deletes the key once all have. Unlike
+poll for it and connect, and rank 0 deletes the key once all have (or
+its wait for them failed). Unlike
 a file store, this needs no filesystem that every rank shares. NCCL
 moves CUDA tensors (numpy goes through this process's card); gloo moves
 host tensors, so a CUDA tensor given to a gloo group is staged through
@@ -69,8 +70,8 @@ def maybe_init_distributed(gcs_call: Callable, group_name: str, world_size: int,
     runtime uses for this node) at a port the kernel picks, and publishes
     ``host:port``; the others poll the key every 0.1 s for up to
     ``timeout_s`` (``TimeoutError`` after) and connect to it. Rank 0
-    deletes the key once every rank has connected (waiting up to
-    ``timeout_s``), so the name can be met under again. Then
+    deletes the key once every rank has connected, or when that wait
+    fails after ``timeout_s``, so the name can be met under again. Then
     ``torch.distributed`` starts on the store (NCCL or gloo).
     ``gcs_call(method, payload)`` is a synchronous GCS call."""
     if dist.is_initialized():
@@ -82,10 +83,13 @@ def maybe_init_distributed(gcs_call: Callable, group_name: str, world_size: int,
                               timeout=connect)
         gcs_call("kv_put", {"ns": COORDINATOR_NS, "key": key,
                             "value": f"{host}:{store.port}".encode()})
-        # once every rank holds the store, the address goes: a later group
-        # of the same name must never read this one's (closed) port
-        store.wait([_JOINED.format(r) for r in range(1, world_size)], connect)
-        gcs_call("kv_del", {"ns": COORDINATOR_NS, "key": key})
+        # once every rank holds the store, or once waiting for them failed,
+        # the address goes: a later group of the same name must never read
+        # this one's (closed) port
+        try:
+            store.wait([_JOINED.format(r) for r in range(1, world_size)], connect)
+        finally:
+            gcs_call("kv_del", {"ns": COORDINATOR_NS, "key": key})
     else:
         deadline = time.monotonic() + timeout_s
         addr = None

@@ -413,7 +413,11 @@ class CoreClient:
         # dispatch; ref: dependency resolver holding arg refs)
         self._inflight_pins: dict[TaskID, list] = {}
         self._ship_collect: list | None = None  # set during arg serialization
-        self._rc_lock = _threading.Lock()  # counts are bumped off-loop too
+        # counts are bumped off-loop too. Reentrant: a garbage-collection
+        # pass can run inside a section and drop an ActorHandle (or an
+        # ObjectRef on the loop thread), whose __del__ takes this lock again
+        # on the same thread
+        self._rc_lock = _threading.RLock()
         self._xq: list = []  # thread->loop submission queue (see _call_on_loop)
         self._xq_armed = False
         self._xq_linger = False

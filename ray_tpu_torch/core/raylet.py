@@ -959,8 +959,15 @@ class Raylet:
         # that close right after the grant — reaping those would kill the
         # worker we just handed out.
         owner_conn = conn if p.get("owner_bound") else None
-        self.leases[lease_id] = Lease(lease_id, resources, w, pg_key, owner_conn, gpu_ids)
+        lease = self.leases[lease_id] = Lease(lease_id, resources, w, pg_key, owner_conn, gpu_ids)
         self._lease_stats["granted"] += 1
+        if owner_conn is not None and owner_conn._closed:
+            # the owner went while its worker was popped or spawned, after
+            # _on_client_disconnect reaped its leases: this one would
+            # outlive it, holding the worker and its resources for good
+            self._reap_owner_lease(lease)
+            self._grant_waiters()
+            raise rpc.RpcError("lease requester disconnected")
         return {
             "granted": True,
             "lease_id": lease_id,
@@ -1171,21 +1178,25 @@ class Raylet:
         # disposes of leased workers when the lease owner dies).
         dead = [l for l in self.leases.values() if l.owner_conn is conn]
         for lease in dead:
-            self.leases.pop(lease.lease_id, None)
-            self._lease_stats["owner_disconnect"] += 1
-            self._free_lease_resources(lease)
-            w = lease.worker
-            w.lease_id = None
-            # the worker may be mid-task for a dead owner — terminate rather
-            # than recycle (actor workers are single-purpose anyway)
-            try:
-                w.proc.terminate()
-            except OSError:
-                pass
-            self.all_workers.pop(w.worker_id, None)
-            self._release_cgroup_after_exit(w)
+            self._reap_owner_lease(lease)
         if dead:
             self._grant_waiters()
+
+    def _reap_owner_lease(self, lease: Lease) -> None:
+        """Take back a granted lease whose owner's connection closed."""
+        self.leases.pop(lease.lease_id, None)
+        self._lease_stats["owner_disconnect"] += 1
+        self._free_lease_resources(lease)
+        w = lease.worker
+        w.lease_id = None
+        # the worker may be mid-task for a dead owner — terminate rather
+        # than recycle (actor workers are single-purpose anyway)
+        try:
+            w.proc.terminate()
+        except OSError:
+            pass
+        self.all_workers.pop(w.worker_id, None)
+        self._release_cgroup_after_exit(w)
 
     def _pick_spillback(self, resources, p):
         """Hybrid-policy spillback: if we can never or not-now satisfy but a

@@ -315,12 +315,11 @@ class ActorMethod:
         )
 
     def bind(self, *args) -> Any:
-        """Author a compiled-graph node for this method (ref: dag/dag_node.py
-        bind API). The JAX package's ``dag`` (``ray_tpu/dag/dag_node.py``)
-        is not ported yet: ROADMAP.md's Queue 1."""
-        raise NotImplementedError(
-            "bind: the compiled graphs of ray_tpu/dag are not ported yet "
-            "(ROADMAP.md, Queue 1)")
+        """Author a compiled-graph node for this method
+        (ref: dag/dag_node.py bind API)."""
+        from ray_tpu_torch.dag.dag_node import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._name, args)
 
 
 def _rebuild_actor_handle(actor_id, method_names, options):

@@ -2512,12 +2512,26 @@ class Worker:
             return {"error": _as_task_error(e)}
 
     async def rpc_start_dag_loop(self, conn, p):
-        """Run a compiled-DAG static schedule (ref: compiled_dag_node.py
-        actor loop): not ported."""
-        # the JAX package's dag/runner.py is not ported yet (ROADMAP.md,
-        # Queue 1): no actor of the port runs a dag loop
-        return {"error": TaskError(
-            "start_dag_loop: the compiled graphs of ray_tpu/dag are not ported yet")}
+        """Run a compiled-DAG static schedule until its channels close
+        (ref: compiled_dag_node.py actor loop). Dedicated thread: blocking
+        channel waits must not stall the actor's normal method surface."""
+        if self.actor_instance is None:
+            return {"error": TaskError("no actor instance on this worker")}
+        from ray_tpu_torch.dag.runner import run_dag_loop
+
+        loop = asyncio.get_running_loop()
+        ex = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="rt-dag"
+        )
+        try:
+            result = await loop.run_in_executor(
+                ex, lambda: run_dag_loop(self, p["schedule"])
+            )
+            return {"result": result}
+        except Exception as e:
+            return {"error": _as_task_error(e)}
+        finally:
+            ex.shutdown(wait=False)
 
     async def rpc_dump_stack(self, conn, p):
         """On-demand stack capture of every thread in this worker (ref:

@@ -547,6 +547,47 @@ def llama_pp_loss(params, batch, cfg: LlamaConfig, mesh, *, n_microbatches: int,
     return _ce_loss(matmul(x, dense["lm_head"]["kernel"]), targets)
 
 
+# --------------------------------------------- stages of a process pipeline
+def llama_stage_params(params: dict, cfg: LlamaConfig, stage: int, n_stages: int) -> dict:
+    """Stage ``stage``'s part of a ``llama_init`` tree when ``n_stages``
+    processes each run an equal run of layers (a compiled graph's stages,
+    ``ray_tpu_torch.dag``): the first stage adds the embedding, the last
+    the final norm and the head. The tensors are the tree's own."""
+    _check_pp(cfg, n_stages)
+    per = cfg.n_layers // n_stages
+    part = {f"layers_{i}": params[f"layers_{i}"] for i in range(stage * per, (stage + 1) * per)}
+    if stage == 0:
+        part["tok"] = params["tok"]
+    if stage == n_stages - 1:
+        part["norm"], part["lm_head"] = params["norm"], params["lm_head"]
+    return part
+
+
+def llama_stage_forward(stage_params: dict, x, cfg: LlamaConfig, *, attn_impl: str = "auto",
+                        last_only: bool = False):
+    """``llama_forward`` over one stage's part (``llama_stage_params``):
+    ``x`` is the tokens [B, T] when the part holds the embedding, else the
+    previous stage's hidden state [B, T, D]. Returns the hidden state, or
+    the logits when the part ends the model: [B, T, V], or [B, 1, V] at the
+    last position with ``last_only`` (the norm is per position, so these
+    equal the whole logits' last row). Rope runs at positions 0..T-1, as in
+    ``llama_forward``. Dense layers only."""
+    if cfg.n_experts:
+        raise ValueError("a llama stage requires dense layers (n_experts=0)")
+    layers = sorted((int(k.split("_")[1]) for k in stage_params if k.startswith("layers_")))
+    some = next(iter(stage_params[f"layers_{layers[0]}"]["wq"].values()))
+    if "tok" in stage_params:
+        x = stage_params["tok"]["embedding"][torch.as_tensor(x, device=some.device).long()]
+    cos, sin = rope_freqs(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, device=some.device)
+    for i in layers:
+        x, _ = _block(stage_params[f"layers_{i}"], x, cos, sin, cfg, attn_impl)
+    if "lm_head" not in stage_params:
+        return x
+    if last_only:
+        x = x[:, -1:]
+    return matmul(rms_norm(x, stage_params["norm"]["scale"]), stage_params["lm_head"]["kernel"])
+
+
 def _shard_leaf(t):
     """The tensor autograd and the optimizer see for a param: a ``DTensor``'s
     local shard itself (its storage, so in-place updates show in the

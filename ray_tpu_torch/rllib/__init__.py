@@ -1,4 +1,4 @@
-"""ray_tpu_torch.rllib — reinforcement learning on PyTorch, in process.
+"""ray_tpu_torch.rllib — reinforcement learning on PyTorch and the port's runtime.
 
 Counterpart of ``ray_tpu/rllib`` (RLlib's new API stack, ref: rllib/),
 with the same modules and public names:
@@ -19,8 +19,11 @@ with the same modules and public names:
   algorithms/bc/, algorithms/cql/)
 - connectors: ConnectorV2 pipelines between env, module, and learner
 
-Runners and learners are objects in the driver's process (JAX's are actors
-of its runtime), and run their networks on the card unless a config's
+As in JAX, the env runners are actors of the runtime (``build`` starts a
+default one unless the process is attached to one) that sample on the host
+CPU, PPO's learners are actors too (``num_learners > 1`` meet in a gloo
+group), the other algorithms learn in the driver's process, and offline
+shards are read by tasks. Learners run on the card unless a config's
 ``.resources(device="cpu")`` says otherwise:
 
     from ray_tpu_torch.rllib import PPOConfig

@@ -4,8 +4,10 @@ Counterpart of ``ray_tpu/rllib/dqn.py`` (ref: rllib/algorithms/dqn/dqn.py
 + dqn_rainbow_learner.py): double-DQN targets, Huber loss, target-network
 syncs, epsilon-greedy env runners, uniform or prioritized replay. The
 update is one step over a sampled batch and returns per-sample |TD| for
-priority updates. Runners are objects in the driver's process; the target
-network is a copy of the online one, never the same tensors.
+priority updates. The learner runs in the driver's process, on its device;
+the runners are actors of the port's runtime, as in JAX, sampling on the
+host CPU. The target network is a copy of the online one, never the same
+tensors.
 """
 from __future__ import annotations
 
@@ -16,10 +18,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.rllib.core import Adam, RLModule, apply, mlp_init, seeded
+import ray_tpu_torch
+from ray_tpu_torch.rllib.core import Adam, RLModule, apply, mlp_init, params_to_numpy, seeded
 from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.learner import to_tensors
-from ray_tpu_torch.rllib.ppo import RUNTIME_ONLY, AlgorithmConfig, merged_metrics
+from ray_tpu_torch.rllib.ppo import (TUNE_NOT_PORTED, AlgorithmConfig, make_runners,
+                                     runner_metrics, spaces, stop_actors)
 from ray_tpu_torch.rllib.replay_buffer import PrioritizedReplayBuffer, ReplayBuffer
 from ray_tpu_torch.utils.device import resolve_device
 
@@ -68,7 +72,7 @@ class TransitionRunner(EnvRunner):
     def _actions(self, rng: np.random.Generator) -> np.ndarray:
         raise NotImplementedError
 
-    def sample(self, num_steps: int) -> dict:
+    def _sample(self, num_steps: int) -> dict:
         if self.module is None:
             raise RuntimeError("set_weights before sample")
         obs_l, act_l, rew_l, next_l, done_l = [], [], [], [], []
@@ -168,20 +172,15 @@ class DQNConfig(AlgorithmConfig):
 
 
 class DQN:
-    """Off-policy driver (ref: dqn.py DQN.training_step): epsilon-greedy
-    sampling -> replay buffer -> double-DQN updates -> periodic target sync
-    -> weight copy to the runners."""
+    """Off-policy driver (ref: dqn.py DQN.training_step): parallel
+    epsilon-greedy sampling -> replay buffer -> double-DQN updates ->
+    periodic target sync -> weight broadcast."""
 
     def __init__(self, config: DQNConfig):
         self.config = config
         self.device = resolve_device(config.device)
-        self.runners = [
-            DQNEnvRunner(config.env_name, config.num_envs_per_runner,
-                         seed=config.seed + 1000 * i, env_config=config.env_config,
-                         device=self.device)
-            for i in range(config.num_env_runners)
-        ]
-        obs_dim, n_actions = self.runners[0].obs_and_action_space()
+        self.runners = make_runners(DQNEnvRunner, config)
+        obs_dim, n_actions = spaces(self.runners)
         self.module = q_init(seeded(config.seed, "cpu"), obs_dim, n_actions, config.hidden,
                              self.device)
         self.target_module = copy.deepcopy(self.module)
@@ -194,8 +193,8 @@ class DQN:
         self._sync_weights()
 
     def _sync_weights(self):
-        for r in self.runners:
-            r.set_weights(self.module)
+        weights = params_to_numpy(self.module)
+        ray_tpu_torch.get([r.set_weights.remote(weights) for r in self.runners], timeout=120)
 
     def _epsilon(self) -> float:
         c = self.config
@@ -206,10 +205,11 @@ class DQN:
         t0 = time.monotonic()
         c = self.config
         eps = self._epsilon()
-        for r in self.runners:
-            r.set_epsilon(eps)
-        for r in self.runners:
-            self.buffer.add_batch(r.sample(c.rollout_fragment_length))
+        ray_tpu_torch.get([r.set_epsilon.remote(eps) for r in self.runners], timeout=120)
+        rollouts = ray_tpu_torch.get(
+            [r.sample.remote(c.rollout_fragment_length) for r in self.runners], timeout=600)
+        for ro in rollouts:
+            self.buffer.add_batch(ro)
         losses = []
         if len(self.buffer) >= c.learning_starts:
             for _ in range(c.train_batches_per_iter):
@@ -223,7 +223,7 @@ class DQN:
                 if self._updates % c.target_update_freq == 0:
                     self.target_module.load_state_dict(self.module.state_dict())
         self._sync_weights()
-        ret_mean, episodes = merged_metrics([r.episode_metrics() for r in self.runners])
+        ret_mean, episodes = runner_metrics(self.runners)
         self._iteration += 1
         return {
             "training_iteration": self._iteration,
@@ -240,9 +240,9 @@ class DQN:
         return self.module
 
     def stop(self):
-        pass
+        stop_actors(self.runners)
 
     @classmethod
     def as_trainable(cls, config: "DQNConfig", stop_iters: int = 10):
         """The Tune adapter."""
-        raise NotImplementedError(f"as_trainable {RUNTIME_ONLY}")
+        raise NotImplementedError(f"as_trainable {TUNE_NOT_PORTED}")

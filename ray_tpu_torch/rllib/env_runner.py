@@ -4,21 +4,25 @@ Counterpart of ``ray_tpu/rllib/env_runner.py`` (ref:
 rllib/env/single_agent_env_runner.py:68 sample :149, env_runner_group.py:71
 sync_weights :570). The vector env steps on the host (``envs.py``); the
 policy lives on the runner's device, the card unless ``device="cpu"``.
-JAX's runner is an actor that weights reach by copy through the object
-store; here the driver calls it in process, and ``set_weights`` copies the
-learner's values into the runner's own module, so a learner's in-place
+The algorithms run their runners as actors of the port's runtime, as JAX
+does (``num_cpus=0.5``, no card: they sample on the host CPU), and pass
+them weights by value as host numpy trees. ``set_weights``
+copies the values into the runner's own module, so a learner's in-place
 optimizer step never reaches a runner before the next ``set_weights``.
 """
 from __future__ import annotations
 
 import copy
+import os
+import time
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.rllib import envs
 from ray_tpu_torch.rllib.connectors import ConnectorCtx
-from ray_tpu_torch.rllib.core import RLModule, params_from_numpy, sample_action, seeded, value_fn
+from ray_tpu_torch.rllib.core import (RLModule, params_from_numpy, params_to_numpy,
+                                      sample_action, seeded, value_fn)
 from ray_tpu_torch.utils.device import resolve_device
 
 
@@ -46,8 +50,13 @@ def load_weights(module: RLModule | None, weights, device) -> RLModule:
 class EnvRunner:
     def __init__(self, env_name: str, num_envs: int = 1, seed: int = 0,
                  env_config: dict | None = None, env_to_module=None,
-                 module_to_env=None, device=None):
+                 module_to_env=None, device=None, num_threads: int | None = None):
         self.device = resolve_device(device)
+        if num_threads is not None:
+            # a runner actor's process is its own: its intra-op threads
+            # match its CPU lease, where one thread a core would spin
+            # against the other runners' (tiny policies, one step at a time)
+            torch.set_num_threads(num_threads)
         self.envs = envs.make_vec(env_name, num_envs, env_config)
         self.num_envs = num_envs
         self.seed = seed
@@ -65,6 +74,8 @@ class EnvRunner:
         self.module_to_env = module_to_env
         self._e2m_ctx = ConnectorCtx(phase="env_to_module", num_envs=num_envs)
         self._m2e_ctx = ConnectorCtx(phase="module_to_env", num_envs=num_envs)
+        self._sample_s = 0.0  # seconds in sample() since the last runner_stats()
+        self._samples = 0
 
     def _module_obs(self, obs):
         if self.env_to_module is None:
@@ -80,6 +91,18 @@ class EnvRunner:
         self.module = load_weights(self.module, weights, self.device)
         return True
 
+    def get_weights(self) -> dict:
+        """The runner's policy as a host numpy tree (JAX's layout)."""
+        return params_to_numpy(self.module)
+
+    def runner_stats(self) -> dict:
+        """This runner's process and device, and the seconds its
+        ``sample`` calls took since the last call (then reset)."""
+        stats = {"pid": os.getpid(), "device": str(self.device),
+                 "sample_s": self._sample_s, "samples": self._samples}
+        self._sample_s, self._samples = 0.0, 0
+        return stats
+
     # -- connector state sync (ref: EnvRunnerGroup merging env-to-module
     # connector states each iteration, then re-broadcasting) -------------
     def get_connector_state(self) -> dict:
@@ -93,8 +116,17 @@ class EnvRunner:
         return True
 
     def sample(self, num_steps: int) -> dict:
-        """Collect num_steps per env; returns flat rollout arrays with
-        bootstrap values for GAE (computed learner-side)."""
+        """Collect num_steps per env (``_sample``), timed for
+        ``runner_stats``."""
+        t0 = time.perf_counter()
+        out = self._sample(num_steps)
+        self._sample_s += time.perf_counter() - t0
+        self._samples += 1
+        return out
+
+    def _sample(self, num_steps: int) -> dict:
+        """Flat rollout arrays with bootstrap values for GAE (computed
+        learner-side)."""
         if self.module is None:
             raise RuntimeError("set_weights before sample")
         obs_l, act_l, logp_l, val_l, rew_l, done_l = [], [], [], [], [], []

@@ -7,10 +7,10 @@ lag with truncated importance weights (rho/c bars), and weights reach the
 runners only every ``broadcast_interval`` consumed batches, so runner
 policies are deliberately stale in between.
 
-JAX keeps a sample request in flight on every runner actor and consumes
-whichever finishes first (``ray_tpu.wait``). Here the runners are objects
-in the driver's process, consumed in a fixed round-robin: each samples
-again with the policy it holds, which changes only at a broadcast.
+As in JAX, a sample request stands in flight on every runner actor; the
+learner (in the driver's process, on its device) consumes whichever
+finishes first (``ray_tpu_torch.wait``), relaunches that runner at once
+with the policy it holds, and broadcasts weights fire-and-forget.
 """
 from __future__ import annotations
 
@@ -19,10 +19,13 @@ import time
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.rllib.core import Adam, apply, policy_init, policy_logits, seeded, value_fn
+import ray_tpu_torch
+from ray_tpu_torch.rllib.core import (Adam, apply, params_to_numpy, policy_init, policy_logits,
+                                     seeded, value_fn)
 from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.learner import entropy, to_tensors
-from ray_tpu_torch.rllib.ppo import AlgorithmConfig, merged_metrics
+from ray_tpu_torch.rllib.ppo import (AlgorithmConfig, make_runners, runner_metrics, spaces,
+                                     stop_actors)
 from ray_tpu_torch.utils.device import resolve_device
 
 
@@ -123,44 +126,52 @@ class IMPALAConfig(AlgorithmConfig):
 
 
 class IMPALA:
-    """The driver (ref: impala.py training_step): runners consumed in
-    round-robin, one update per batch, weights copied to every runner only
-    every broadcast_interval batches."""
+    """Async driver (ref: impala.py training_step): a sample request is
+    ALWAYS in flight on every runner; the learner consumes whichever
+    finishes first and only rebroadcasts weights every
+    broadcast_interval batches."""
 
     def __init__(self, config: IMPALAConfig):
         self.config = config
         self.device = resolve_device(config.device)
-        self.runners = [
-            EnvRunner(config.env_name, config.num_envs_per_runner,
-                      seed=config.seed + 1000 * i, env_config=config.env_config,
-                      device=self.device)
-            for i in range(config.num_env_runners)
-        ]
-        obs_dim, n_actions = self.runners[0].obs_and_action_space()
+        self.runners = make_runners(EnvRunner, config)
+        obs_dim, n_actions = spaces(self.runners)
         self.module = policy_init(seeded(config.seed, "cpu"), obs_dim, n_actions,
                                   config.hidden, self.device)
         self._update, optimizer = config._build_update()
         self.opt = optimizer.init(self.module)
         self._iteration = 0
         self._consumed = 0
-        for r in self.runners:
-            r.set_weights(self.module)
+        weights = params_to_numpy(self.module)
+        ray_tpu_torch.get([r.set_weights.remote(weights) for r in self.runners], timeout=120)
+        # launch the standing sample requests (the async part)
+        self._inflight = {r.sample.remote(config.rollout_fragment_length): r
+                          for r in self.runners}
 
     def train(self) -> dict:
         t0 = time.monotonic()
         c = self.config
         losses = []
         for _ in range(c.batches_per_iter):
-            runner = self.runners[self._consumed % len(self.runners)]
-            rollout = runner.sample(c.rollout_fragment_length)
+            ready, _ = ray_tpu_torch.wait(list(self._inflight), num_returns=1, timeout=600)
+            ref = ready[0]
+            runner = self._inflight.pop(ref)
+            rollout = ray_tpu_torch.get(ref, timeout=60)
+            # relaunch IMMEDIATELY with the runner's current (stale-ok)
+            # policy: sampling never waits for the learner
+            self._inflight[runner.sample.remote(c.rollout_fragment_length)] = runner
             batch = to_tensors({k: rollout[k] for k in (
                 "obs", "actions", "logp", "rewards", "dones", "last_obs")}, self.device)
             losses.append(self._update(self.module, self.opt, batch))
             self._consumed += 1
             if self._consumed % c.broadcast_interval == 0:
+                # fire-and-forget broadcast: staleness is by design
+                # (V-trace corrects the off-policy drift), so a lost
+                # update is repaired by the next broadcast
+                weights = params_to_numpy(self.module)
                 for r in self.runners:
-                    r.set_weights(self.module)
-        ret_mean, episodes = merged_metrics([r.episode_metrics() for r in self.runners])
+                    r.set_weights.remote(weights)  # raylint: disable=RT003
+        ret_mean, episodes = runner_metrics(self.runners)
         self._iteration += 1
         return {
             "training_iteration": self._iteration,
@@ -175,4 +186,4 @@ class IMPALA:
         return self.module
 
     def stop(self):
-        pass
+        stop_actors(self.runners)

@@ -3,17 +3,22 @@
 Counterpart of ``ray_tpu/rllib/learner.py`` (ref:
 rllib/core/learner/learner.py:107 grads :170, learner_group.py:100 update
 :234). The update runs GAE on the host, then clipped-surrogate PPO over
-minibatch epochs with ``torch.optim.Adam`` on the learner's device. With
+minibatch epochs with ``torch.optim.Adam`` on the learner's device. PPO
+runs each learner as an actor of the port's runtime, as JAX does. With
 ``world_size > 1`` the learners meet in a ``ray_tpu_torch.collective``
-group and average params and Adam moments after every update.
+group (through the runtime's GCS KV, or the config's ``init_method``) and
+average params and Adam moments after every update.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.rllib.core import Adam, apply, policy_init, policy_logits, seeded, value_fn
+from ray_tpu_torch.rllib.core import (Adam, apply, params_to_numpy, policy_init, policy_logits,
+                                     seeded, value_fn)
 from ray_tpu_torch.utils.device import resolve_device
 
 
@@ -44,10 +49,11 @@ def compute_gae(rollout: dict, gamma: float, lam: float) -> dict:
 
 def to_tensors(batch: dict, device) -> dict:
     """Host arrays to tensors on ``device``: integer arrays (actions) as
-    int64 indices, the rest float32."""
-    return {k: torch.as_tensor(np.asarray(v), device=device).long()
+    int64 indices, the rest float32. Always copies: a rollout read from
+    the object store is a read-only view of its shm arena."""
+    return {k: torch.tensor(np.asarray(v), device=device).long()
             if np.issubdtype(np.asarray(v).dtype, np.integer)
-            else torch.as_tensor(np.asarray(v, np.float32), device=device)
+            else torch.tensor(np.asarray(v, np.float32), device=device)
             for k, v in batch.items()}
 
 
@@ -136,6 +142,23 @@ class Learner:
 
     def get_weights(self):
         return self.module
+
+    def get_host_weights(self) -> dict:
+        """The policy as a host numpy tree (JAX's layout), what the
+        runners' ``set_weights`` takes: it leaves the card here, once."""
+        return params_to_numpy(self.module)
+
+    def get_state(self) -> dict:
+        """This learner's process and device, and host numpy copies of
+        every parameter and its Adam state (``param/<name>``,
+        ``exp_avg/<name>``, ``exp_avg_sq/<name>``, ``step/<name>``)."""
+        tensors = {}
+        for name, p in self.module.named_parameters():
+            st = self.opt.state[p]
+            for key, t in (("param", p), ("exp_avg", st["exp_avg"]),
+                           ("exp_avg_sq", st["exp_avg_sq"]), ("step", st["step"])):
+                tensors[f"{key}/{name}"] = t.detach().cpu().numpy().copy()
+        return {"pid": os.getpid(), "device": str(self.device), "tensors": tensors}
 
     def update(self, rollouts: list[dict]) -> dict:
         """One training step over this learner's share of rollouts. A rank

@@ -4,9 +4,10 @@ Counterpart of ``ray_tpu/rllib/offline.py`` (ref:
 rllib/offline/offline_data.py + json_reader.py sample-batch JSON files;
 rllib/algorithms/bc/bc.py; rllib/algorithms/cql/cql.py). Experiences are
 JSONL fragments ({obs, actions, rewards, dones, next_obs} per line, the
-SampleBatch shape). JAX reads file shards as tasks of its runtime; here
-``OfflineData`` reads them in process, in the same order, and serves the
-same seeded minibatches. The learners run on the config's device:
+SampleBatch shape). As in JAX, ``OfflineData`` reads the file shards as
+tasks of the runtime (starting a default one unless the process is
+attached to one), gathers them in order, and serves seeded minibatches.
+The learners run in the driver's process, on the config's device:
 
   - BC:  supervised cross-entropy of the policy on logged actions.
   - CQL (discrete): SAC's twin soft critics + a conservative penalty
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch
 from ray_tpu_torch.rllib import envs
 from ray_tpu_torch.rllib.core import Adam, apply, policy_init, policy_logits, seeded
 from ray_tpu_torch.rllib.env_runner import EnvRunner
@@ -93,10 +95,14 @@ def read_shard(path: str) -> dict:
     return {k: np.concatenate(v) for k, v in cols.items()} if cols else {}
 
 
+_read_shard = ray_tpu_torch.remote(read_shard)
+
+
 class OfflineData:
     """Reader over one or more JSONL experience files (ref:
-    offline_data.py OfflineData): transitions concatenate into one
-    in-memory table served as seeded minibatches."""
+    offline_data.py OfflineData): file shards load as parallel tasks,
+    transitions concatenate into one in-memory table served as seeded
+    minibatches."""
 
     def __init__(self, paths: str | list[str], *, seed: int = 0):
         if isinstance(paths, str):
@@ -111,7 +117,8 @@ class OfflineData:
                 expanded.append(p)
         if not expanded:
             raise ValueError(f"no offline data under {paths!r}")
-        shards = [s for s in map(read_shard, expanded) if s]
+        shards = ray_tpu_torch.get([_read_shard.remote(p) for p in expanded], timeout=600)
+        shards = [s for s in shards if s]
         self.table = {
             k: np.concatenate([s[k] for s in shards]) for k in shards[0]
         }

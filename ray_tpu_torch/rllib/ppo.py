@@ -3,24 +3,29 @@
 Counterpart of ``ray_tpu/rllib/ppo.py`` (ref:
 rllib/algorithms/algorithm.py:207 step :986 training_step :2004,
 algorithm_config.py builder, ppo/ppo.py:362). One train() iteration:
-env-runner sampling -> learner update -> weight sync, with episode metrics
-aggregated across runners. JAX's runners and learners are actors of its
-runtime; here they are objects in the driver's process, sampled one after
-another, on the config's device (the card unless ``.resources(device=
-"cpu")``). Several learners and the Tune adapter need that runtime and are
-refused.
+parallel env-runner sampling -> learner-group update -> weight sync, with
+episode metrics aggregated across runners. As in JAX, runners and
+learners are actors of the port's runtime (``build`` starts a default
+runtime unless the process is attached to one): runners lease half a CPU
+and no card, so they sample on the host CPU; learners lease a CPU and, on
+the card (the default; ``.resources(device="cpu")`` for the CPU),
+``1/num_learners`` of it, and with ``num_learners > 1`` meet in a gloo
+group through the runtime's GCS KV.
 """
 from __future__ import annotations
 
 import copy
 import time
+import uuid
 
+import ray_tpu_torch
 from ray_tpu_torch.rllib.connectors import ConnectorV2
 from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.learner import Learner
+from ray_tpu_torch.utils.device import resolve_device
 
-RUNTIME_ONLY = ("needs the actor runtime of the JAX package (remote learners "
-                "joined in a collective group, or Tune), which the port does not copy")
+TUNE_NOT_PORTED = ("needs Tune (the JAX package's tune/), which the port has not ported yet "
+                   "(ROADMAP.md, Queue 1)")
 
 
 class AlgorithmConfig:
@@ -125,30 +130,53 @@ def merged_metrics(metrics_list: list[dict]) -> tuple[float, int]:
             sum(m.get("episodes", 0) for m in metrics_list))
 
 
+# ------------------------------------------- what every driver shares
+def make_runners(runner_cls, config, extra=None) -> list:
+    """``config.num_env_runners`` runner actors of ``runner_cls`` (JAX's
+    ``num_cpus=0.5`` and no card: each samples on the host CPU, on one
+    intra-op thread), runner ``i`` seeded ``config.seed + 1000 * i``;
+    ``extra()`` gives each its own further keyword arguments."""
+    cls = ray_tpu_torch.remote(runner_cls).options(num_cpus=0.5)
+    return [cls.remote(config.env_name, config.num_envs_per_runner,
+                       seed=config.seed + 1000 * i, env_config=config.env_config,
+                       device="cpu", num_threads=1, **(extra() if extra else {}))
+            for i in range(config.num_env_runners)]
+
+
+def spaces(runners) -> tuple[int, int]:
+    """(obs_dim, n_actions) of the runners' env."""
+    return tuple(ray_tpu_torch.get(runners[0].obs_and_action_space.remote(), timeout=120))
+
+
+def runner_metrics(runners) -> tuple[float, int]:
+    """``merged_metrics`` of the runners' ``episode_metrics``."""
+    return merged_metrics(ray_tpu_torch.get([r.episode_metrics.remote() for r in runners],
+                                            timeout=120))
+
+
+def stop_actors(actors) -> None:
+    for a in actors:
+        try:
+            ray_tpu_torch.kill(a)
+        except Exception:  # raylint: disable=RT012 — teardown: actor may already be dead
+            pass
+
+
 class PPO:
     """(ref: algorithms/algorithm.py Algorithm)."""
 
     def __init__(self, config: PPOConfig):
-        if config.num_learners > 1:
-            raise ValueError(f"num_learners={config.num_learners} {RUNTIME_ONLY}; the port "
-                             "runs one learner in process (use Learner directly for a "
-                             "multi-process group)")
+        # no card: raise before any actor (or a default runtime) starts
+        device = resolve_device(config.device)
         self.config = config
         e2m = config.env_to_module_connector
         m2e = config.module_to_env_connector
-        self.runners = [
-            EnvRunner(
-                config.env_name, config.num_envs_per_runner,
-                seed=config.seed + 1000 * i, env_config=config.env_config,
-                env_to_module=build_pipe(e2m), module_to_env=build_pipe(m2e),
-                device=config.device,
-            )
-            for i in range(config.num_env_runners)
-        ]
+        self.runners = make_runners(EnvRunner, config, lambda: {
+            "env_to_module": build_pipe(e2m), "module_to_env": build_pipe(m2e)})
         self._has_connectors = e2m is not None
         # merge_states needs a pipeline of the same shape; build it once
         self._connector_proto = build_pipe(e2m)
-        obs_dim, n_actions = self.runners[0].obs_and_action_space()
+        obs_dim, n_actions = spaces(self.runners)
         learner_cfg = {
             "obs_dim": obs_dim,
             "n_actions": n_actions,
@@ -166,31 +194,46 @@ class PPO:
             "learner_connector": config.learner_connector,
             "device": config.device,
         }
-        self.learners = [Learner(0, 1, learner_cfg)]
+        n = config.num_learners
+        LearnerCls = ray_tpu_torch.remote(Learner).options(
+            num_cpus=1.0, max_concurrency=2,
+            num_gpus=1.0 / n if device.type == "cuda" else 0)
+        group = f"rl_learners_{uuid.uuid4().hex[:12]}"  # one group per algorithm
+        self.learners = [LearnerCls.remote(rank, n, learner_cfg, group) for rank in range(n)]
         self._iteration = 0
         self._sync_weights()
 
     def _sync_weights(self):
-        weights = self.learners[0].get_weights()
-        for r in self.runners:
-            r.set_weights(weights)
+        """Learner 0's weights to every runner by value, as in JAX: the
+        driver fetches the host tree first (the learner's returned ref,
+        passed on as the runners' argument, waits in the runtime: ROADMAP
+        Queue 3, 5)."""
+        weights = ray_tpu_torch.get(self.learners[0].get_host_weights.remote(), timeout=300)
+        ray_tpu_torch.get([r.set_weights.remote(weights) for r in self.runners], timeout=120)
 
     def train(self) -> dict:
-        """One iteration (ref: Algorithm.step :986): sample, update, sync."""
+        """One iteration (ref: Algorithm.step :986): sample in parallel,
+        shard rollouts across learners, update, sync."""
         t0 = time.monotonic()
         frag = self.config.rollout_fragment_length
-        rollouts = [r.sample(frag) for r in self.runners]
-        result = self.learners[0].update(rollouts)
+        rollouts = ray_tpu_torch.get([r.sample.remote(frag) for r in self.runners],
+                                     timeout=600)
+        n_learn = len(self.learners)
+        # every learner participates (empty shards still join the sync)
+        results = ray_tpu_torch.get(
+            [ln.update.remote(rollouts[i::n_learn]) for i, ln in enumerate(self.learners)],
+            timeout=600)
+        results = [r for r in results if r["samples"] > 0]
         self._sync_weights()
         if self._has_connectors and len(self.runners) > 1:
             self._sync_connector_states()
-        ret_mean, episodes = merged_metrics([r.episode_metrics() for r in self.runners])
+        ret_mean, episodes = runner_metrics(self.runners)
         self._iteration += 1
         return {
             "training_iteration": self._iteration,
             "episode_return_mean": ret_mean,
             "episodes_this_iter": episodes,
-            "loss": result["loss"],
+            "loss": sum(r["loss"] for r in results) / len(results),
             "num_env_steps_sampled": frag
             * self.config.num_envs_per_runner
             * self.config.num_env_runners,
@@ -202,19 +245,21 @@ class PPO:
         across runners and re-broadcast, so every runner normalizes with
         the fleet-wide statistics (ref: EnvRunnerGroup connector-state
         aggregation)."""
-        states = [r.get_connector_state() for r in self.runners]
+        states = ray_tpu_torch.get([r.get_connector_state.remote() for r in self.runners],
+                                   timeout=120)
         merged = self._connector_proto.merge_states([s for s in states if s])
         if merged:
-            for r in self.runners:
-                r.set_connector_state(merged)
+            ray_tpu_torch.get([r.set_connector_state.remote(merged) for r in self.runners],
+                              timeout=120)
 
     def get_weights(self):
-        return self.learners[0].get_weights()
+        """Learner 0's ``RLModule``, on this process's card (or the CPU)."""
+        return ray_tpu_torch.get(self.learners[0].get_weights.remote(), timeout=120)
 
     def stop(self):
-        pass
+        stop_actors(self.runners + self.learners)
 
     @classmethod
     def as_trainable(cls, config: PPOConfig, stop_iters: int = 10):
         """The Tune adapter (ref: Algorithm is-a Trainable)."""
-        raise NotImplementedError(f"as_trainable {RUNTIME_ONLY}")
+        raise NotImplementedError(f"as_trainable {TUNE_NOT_PORTED}")

@@ -23,10 +23,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.rllib.core import Adam, RLModule, apply, mlp_init, seeded
+import ray_tpu_torch
+from ray_tpu_torch.rllib.core import Adam, RLModule, apply, mlp_init, params_to_numpy, seeded
 from ray_tpu_torch.rllib.dqn import TransitionRunner
 from ray_tpu_torch.rllib.learner import to_tensors
-from ray_tpu_torch.rllib.ppo import AlgorithmConfig, merged_metrics
+from ray_tpu_torch.rllib.ppo import (AlgorithmConfig, make_runners, runner_metrics, spaces,
+                                     stop_actors)
 from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
 from ray_tpu_torch.utils.device import resolve_device
 
@@ -148,19 +150,14 @@ class SACConfig(AlgorithmConfig):
 
 class SAC:
     """Off-policy driver (ref: sac.py training_step): stochastic-policy
-    sampling -> replay -> twin-critic soft updates with autotuned
-    temperature -> weight copy to the runners."""
+    sampling on the runner actors -> replay -> twin-critic soft updates
+    with autotuned temperature -> weight broadcast."""
 
     def __init__(self, config: SACConfig):
         self.config = config
         self.device = resolve_device(config.device)
-        self.runners = [
-            SACEnvRunner(config.env_name, config.num_envs_per_runner,
-                         seed=config.seed + 1000 * i, env_config=config.env_config,
-                         device=self.device)
-            for i in range(config.num_env_runners)
-        ]
-        obs_dim, n_actions = self.runners[0].obs_and_action_space()
+        self.runners = make_runners(SACEnvRunner, config)
+        obs_dim, n_actions = spaces(self.runners)
         self.module = sac_init(seeded(config.seed, "cpu"), obs_dim, n_actions, config.hidden,
                                initial_alpha=config.initial_alpha, device=self.device)
         self.target_module = critic_target(self.module)
@@ -174,14 +171,16 @@ class SAC:
         self._sync_weights()
 
     def _sync_weights(self):
-        for r in self.runners:
-            r.set_weights(self.module)
+        weights = params_to_numpy(self.module)
+        ray_tpu_torch.get([r.set_weights.remote(weights) for r in self.runners], timeout=120)
 
     def train(self) -> dict:
         t0 = time.monotonic()
         c = self.config
-        for r in self.runners:
-            self.buffer.add_batch(r.sample(c.rollout_fragment_length))
+        rollouts = ray_tpu_torch.get(
+            [r.sample.remote(c.rollout_fragment_length) for r in self.runners], timeout=600)
+        for ro in rollouts:
+            self.buffer.add_batch(ro)
         losses, alphas = [], []
         if len(self.buffer) >= c.learning_starts:
             for _ in range(c.train_batches_per_iter):
@@ -194,7 +193,7 @@ class SAC:
                 alphas.append(alpha)
                 self._updates += 1
         self._sync_weights()
-        ret_mean, episodes = merged_metrics([r.episode_metrics() for r in self.runners])
+        ret_mean, episodes = runner_metrics(self.runners)
         self._iteration += 1
         return {
             "training_iteration": self._iteration,
@@ -211,4 +210,4 @@ class SAC:
         return self.module
 
     def stop(self):
-        pass
+        stop_actors(self.runners)

@@ -10,9 +10,11 @@ and ``tests/test_torch_rllib_learn.py``) with ``config.seed`` set to each
 seed, and prints one JSON line per (algorithm, seed): the first finite and
 the best mean return per iteration (or the test's own readings) and
 whether the test's bar was met. ``--package port`` (the default) runs
-``ray_tpu_torch.rllib`` in process on the CPU; ``--package jax`` runs
-``ray_tpu.rllib`` on its actor runtime (``ray_tpu.init``). The multi-agent,
-BC and CQL cases run the port only.
+``ray_tpu_torch.rllib`` on the CPU on the port's runtime
+(``ray_tpu_torch.init``: runner actors, PPO's learner actors, offline
+shard tasks); ``--package jax`` runs ``ray_tpu.rllib`` on its actor
+runtime (``ray_tpu.init``). The multi-agent, BC and CQL cases run the port
+only.
 """
 from __future__ import annotations
 
@@ -181,9 +183,12 @@ def main() -> int:
     else:
         import torch
 
+        import ray_tpu_torch
         from ray_tpu_torch import rllib as rl
 
         torch.set_num_threads(1)
+        os.environ["OMP_NUM_THREADS"] = "1"  # the runtime's workers inherit it
+        ray_tpu_torch.init(num_cpus=8)
         cases = configs(rl, {"device": "cpu"})
         cases.update({"multi_agent": multi_agent, "bc": bc, "cql": cql})
     for name, case in cases.items():

@@ -216,3 +216,36 @@ def test_rank_times_out_without_coordinator(rt):
     assert not dist.is_initialized()
     assert len(calls) >= 3  # polled every 0.1 s
     assert set(calls) == {("kv_get", "collective", "collective:nobody_publishes:coordinator")}
+
+
+def test_coordinator_key_goes_when_a_rank_never_joins(rt, tmp_path):
+    """Rank 0 of a world of 2 whose rank 1 never connects: its wait fails
+    after the timeout, it raises, and its coordinator key is gone from the
+    GCS KV all the same. Rank 0 binds a store, so it runs in a process of
+    its own, attached to this module's runtime."""
+    from ray_tpu_torch.collective.torch_group import COORDINATOR_NS, coordinator_key
+
+    host, port = rt.get_core().gcs_address
+    code = (
+        "import sys, time\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "import ray_tpu_torch\n"
+        "from ray_tpu_torch.collective.torch_group import maybe_init_distributed\n"
+        f"ray_tpu_torch.init(address='{host}:{port}')\n"
+        "core = ray_tpu_torch.get_core()\n"
+        "gcs = lambda m, p: core._run_sync(core.gcs.call(m, p))\n"
+        "t0 = time.monotonic()\n"
+        "try:\n"
+        "    maybe_init_distributed(gcs, 'rank1_never_joins', 2, 0, 'gloo',\n"
+        "                           core.raylet_address[0], timeout_s=1.0)\n"
+        "except Exception as e:\n"
+        "    print('raised', type(e).__name__, round(time.monotonic() - t0, 1), flush=True)\n"
+        "ray_tpu_torch.shutdown()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=90, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "raised" in out.stdout, (out.stdout, out.stderr[-3000:])
+    core = rt.get_core()
+    left = core._run_sync(core.gcs.call("kv_get", {
+        "ns": COORDINATOR_NS, "key": coordinator_key("rank1_never_joins")}))
+    assert not left, left

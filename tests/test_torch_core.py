@@ -535,3 +535,106 @@ def test_lane_rings_leave_no_shm_names(rt):
         time.sleep(0.1)
     rt.kill(actor)
     assert not left(), left()
+
+
+@ray_tpu_torch.remote(num_cpus=0.5)
+class _Holder:
+    def __init__(self):
+        self.tree = None
+
+    def make(self, i):
+        return {"w": np.full((64, 64), float(i), np.float32), "i": i}
+
+    def take(self, tree):
+        self.tree = tree
+        return float(tree["w"].sum()), tree["i"]
+
+
+def test_actor_result_passed_on_as_an_argument(rt):
+    """One actor's result given to another actor's call as a ref, and the
+    same result fetched by the driver and passed by value, as rllib's
+    weight syncs pass it: both deliver the tree. Prints each hand-off's ms
+    (the ref's waits in the runtime: ROADMAP Queue 3, 5); asserts no time."""
+    import statistics
+
+    src, dst = _Holder.remote(), _Holder.remote()
+    rt.get([src.make.remote(0), dst.take.remote(rt.get(src.make.remote(0)))], timeout=60)
+    by_ref, by_value = [], []
+    for i in range(1, 4):
+        t0 = time.perf_counter()
+        assert rt.get(dst.take.remote(src.make.remote(i)), timeout=60) == (64 * 64 * i, i)
+        t1 = time.perf_counter()
+        tree = rt.get(src.make.remote(i), timeout=60)
+        assert rt.get(dst.take.remote(tree), timeout=60) == (64 * 64 * i, i)
+        by_ref.append((t1 - t0) * 1e3)
+        by_value.append((time.perf_counter() - t1) * 1e3)
+    print(f"actor result as an argument: by ref {statistics.median(by_ref):.2f} ms, "
+          f"fetched and passed by value {statistics.median(by_value):.2f} ms (medians of 3)")
+    rt.kill(src)
+    rt.kill(dst)
+
+
+def test_handle_drop_inside_a_refcount_section_does_not_deadlock(rt):
+    """A garbage-collection pass inside one of the core's refcount
+    sections can run an ActorHandle's __del__, which drops the handle's
+    count under the same lock on the same thread: the lock must let it in
+    (a plain Lock hung a test worker on exactly this)."""
+    import threading
+
+    from ray_tpu_torch.utils.ids import ActorID
+
+    core = rt.get_core()
+    done = threading.Event()
+
+    def section():
+        with core._rc_lock:  # e.g. on_owned_ref_created, when the GC fires
+            core.note_actor_handle_dropped(ActorID.generate())
+        done.set()
+
+    t = threading.Thread(target=section, daemon=True)
+    t.start()
+    t.join(10)
+    assert done.is_set()
+
+
+def test_lease_granted_after_its_owner_left_is_taken_back(tmp_path):
+    """A lease whose owner disconnects while its worker is being popped
+    or spawned (after the raylet's disconnect reaping ran) is taken back
+    at once: its CPU returns and no lease names the closed connection. A
+    lease kept would hold the worker and the CPU for good (a TorchTrainer's
+    placement group then waited on CPUs leased to a killed actor)."""
+    from ray_tpu_torch.core.cluster import Cluster
+    from ray_tpu_torch.utils import rpc
+
+    io = rpc.EventLoopThread()
+    cluster = Cluster(io=io)
+    try:
+        cluster.add_node(num_cpus=2.0)
+        raylet = cluster.raylets[0]
+
+        class Owner:  # a requester's connection, as the raylet sees it
+            _closed = False
+
+        owner = Owner()
+        pop_worker = raylet._pop_worker
+
+        async def pop_then_owner_leaves(language):
+            w = await pop_worker(language)
+            owner._closed = True
+            raylet._on_client_disconnect(owner)
+            return w
+
+        raylet._pop_worker = pop_then_owner_leaves
+
+        async def lease():
+            assert raylet._try_allocate({"CPU": 1.0}, None)
+            with pytest.raises(rpc.RpcError, match="disconnected"):
+                await raylet._grant_lease(owner, {"owner_bound": True, "language": "python"},
+                                          {"CPU": 1.0}, None)
+
+        io.run(lease(), timeout=60)
+        assert not [l for l in raylet.leases.values() if l.owner_conn is owner]
+        assert raylet.ledger.available.get("CPU") == 2.0
+    finally:
+        cluster.shutdown()
+        io.stop()

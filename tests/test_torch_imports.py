@@ -61,7 +61,9 @@ SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
                "ray_tpu_torch.serve.dataplane", "ray_tpu_torch.serve.dataplane.admission",
                "ray_tpu_torch.serve.dataplane.slo", "ray_tpu_torch.serve.dataplane.fastlane",
                "ray_tpu_torch.serve.dataplane.autoscaler", "ray_tpu_torch.serve.streaming",
-               "ray_tpu_torch.serve.streaming.slo"]
+               "ray_tpu_torch.serve.streaming.slo",
+               "ray_tpu_torch.dag", "ray_tpu_torch.dag.channel", "ray_tpu_torch.dag.dag_node",
+               "ray_tpu_torch.dag.compiled_dag", "ray_tpu_torch.dag.runner"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
@@ -151,3 +153,20 @@ def test_data_exports_match_jax():
     assert tdata.__all__ == jdata.__all__
     assert all(hasattr(tdata, n) for n in tdata.__all__)
     assert tdata.range is tdata.dataset.range
+
+
+def test_dag_exports_match_jax():
+    """ray_tpu_torch.dag exports every name of ray_tpu.dag, and an actor
+    method's bind authors its graph node."""
+    import ray_tpu.dag as jdag
+
+    import ray_tpu_torch.dag as tdag
+    from ray_tpu_torch.core.ref import ActorHandle, ActorMethod
+    from ray_tpu_torch.utils.ids import ActorID
+
+    assert tdag.__all__ == jdag.__all__
+    assert all(hasattr(tdag, n) for n in tdag.__all__)
+    handle = ActorHandle(ActorID.generate())  # no runtime: binding submits nothing
+    node = ActorMethod(handle, "step").bind(tdag.InputNode(), 3)
+    assert isinstance(node, tdag.ClassMethodNode)
+    assert (node.actor_handle, node.method_name, node.args[1]) == (handle, "step", 3)

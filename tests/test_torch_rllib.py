@@ -8,6 +8,7 @@ every updated leaf within 1e-5), ``sample_action``'s math on given actions,
 the numpy replay buffers, ``OfflineData`` and connectors (exact), and DQN's
 runner, whose exploration is numpy in both.
 """
+import dataclasses
 import types
 
 import jax
@@ -378,7 +379,7 @@ def test_replay_buffers_sample_jax_indices(prioritized):
 
 def test_offline_data_matches_jax(tmp_path, monkeypatch):
     """Shards read in process give JAX's table, and minibatches draw JAX's
-    rows from the same seed (JAX's shard tasks run inline here)."""
+    rows from the same seed (both packages' shard tasks run inline here)."""
     rng = np.random.default_rng(0)
     for i in range(3):
         offline.write_rollouts(str(tmp_path / f"part{i}.jsonl"), [{
@@ -388,6 +389,8 @@ def test_offline_data_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setattr(joffline, "_read_shard",
                         types.SimpleNamespace(remote=joffline._read_shard.__wrapped__))
     monkeypatch.setattr(joffline.ray_tpu, "get", lambda refs, timeout=None: refs)
+    monkeypatch.setattr(offline, "_read_shard", types.SimpleNamespace(remote=offline.read_shard))
+    monkeypatch.setattr(offline.ray_tpu_torch, "get", lambda refs, timeout=None: refs)
     ours, theirs = offline.OfflineData(str(tmp_path), seed=4), joffline.OfflineData(
         str(tmp_path), seed=4)
     assert ours.n == theirs.n == 33
@@ -549,9 +552,30 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_runtime_only_paths_refuse():
+    """Two learners now build, as actors of the port's runtime meeting in a
+    gloo group, and train; only the Tune adapter still refuses: the port
+    has no tune/ yet."""
+    import ray_tpu_torch
+    from ray_tpu_torch import config
+
     cfg = rllib.PPOConfig().environment("CartPole-v1").learners(num_learners=2)
-    with pytest.raises(ValueError, match="actor runtime"):
-        cfg.resources(device="cpu").build()
+    runtime_cfg = config.get_config()
+    config.set_config(dataclasses.replace(runtime_cfg, worker_lease_timeout_s=1.0))
+    started = not ray_tpu_torch.is_initialized()
+    if started:
+        ray_tpu_torch.init(num_cpus=8)
+    try:
+        algo = (cfg.env_runners(num_env_runners=2, num_envs_per_env_runner=2,
+                                rollout_fragment_length=16)
+                .training(epochs=1, minibatches=2, hidden=16).resources(device="cpu").build())
+        assert len(algo.learners) == 2
+        result = algo.train()
+        assert result["training_iteration"] == 1 and np.isfinite(result["loss"])
+        algo.stop()
+    finally:
+        if started:
+            ray_tpu_torch.shutdown()
+        config.set_config(runtime_cfg)
     for algo in (rllib.PPO, rllib.DQN):
-        with pytest.raises(NotImplementedError, match="actor runtime"):
+        with pytest.raises(NotImplementedError, match="tune/"):
             algo.as_trainable(cfg)

@@ -1,25 +1,69 @@
-"""The port's in-process RL drivers learn, on the CPU, at the JAX tests'
-settings, seeds and bars (``tests/test_rllib.py``): PPO, DQN, IMPALA,
-APPO and SAC on the port's CartPole-v1, the two-agent runner, BC and CQL.
-The random streams are the port's own (``torch.Generator``), so the
-trajectories differ from JAX's; the bars are the same.
+"""The port's RL drivers learn, on the CPU, at the JAX tests' settings,
+seeds and bars (``tests/test_rllib.py``): PPO, DQN, IMPALA, APPO and SAC
+on the port's CartPole-v1, the two-agent runner, BC and CQL. As in JAX the
+runners are actors of the port's runtime, PPO's learners too, and offline
+shards are read by tasks; the cases that hold those designs (runner
+processes, a two-learner group, IMPALA's standing requests, shard tasks)
+close the module. The random streams are the port's own
+(``torch.Generator``), so the trajectories differ from JAX's; the bars are
+the same.
+
+One runtime serves the module (JAX's ``tests/test_rllib.py`` starts one
+too); its workers run one intra-op thread.
 """
+import dataclasses
+import gc
+import os
+
 import numpy as np
 import pytest
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch import rllib
 from ray_tpu_torch.rllib import core
+
+from _torch_time_limit import time_limits
+
+# the learning cases take 10-40 s each under load, the runtime's start ~3 s
+_module_limit, _test_limit = time_limits(module_s=300, test_s=180)
 
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
-    """One intra-op thread: the ops here are tiny, and the default of one
-    thread a core spins idle threads that starve the other test workers."""
+    """One intra-op thread in this process and in the runtime's workers:
+    the ops here are tiny, and the default of one thread a core spins idle
+    threads that starve the other test workers."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    omp = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"  # the workers inherit it
     yield
     torch.set_num_threads(threads)
+    if omp is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = omp
+
+
+@pytest.fixture(autouse=True, scope="module")
+def rt(one_torch_thread):
+    from ray_tpu_torch import config
+
+    ray_tpu_torch.shutdown()  # a runtime another module left in this process
+    cfg = config.get_config()
+    config.set_config(dataclasses.replace(cfg, worker_lease_timeout_s=1.0))
+    ray_tpu_torch.init(num_cpus=8)
+    yield ray_tpu_torch
+    ray_tpu_torch.shutdown()
+    config.set_config(cfg)
+
+
+@pytest.fixture(autouse=True)
+def collect():
+    """A test's algorithm goes with its last handle: its actors too."""
+    yield
+    gc.collect()
 
 
 def curve(algo, iters: int) -> tuple[float, float]:
@@ -76,14 +120,16 @@ def test_vtrace_algorithms_learn_cartpole(config):
 
 def test_impala_runners_keep_stale_weights_between_broadcasts():
     """With broadcast_interval=3 a runner acts on the weights of the last
-    broadcast while the learner steps."""
+    broadcast while the learner steps. The runner is an actor: its weights
+    are read through an actor call, which queues behind every broadcast
+    the driver sent it before."""
     algo = (rllib.IMPALAConfig().environment("CartPole-v1")
             .env_runners(num_env_runners=2, num_envs_per_env_runner=2,
                          rollout_fragment_length=8)
             .training(batches_per_iter=2, broadcast_interval=3, hidden=16)
             .resources(device="cpu").build())
     def runner_w():
-        return core.params_to_numpy(algo.runners[1].module)["pi"][0]["w"]
+        return ray_tpu_torch.get(algo.runners[1].get_weights.remote(), timeout=60)["pi"][0]["w"]
 
     start = runner_w()
     algo.train()  # updates 1-2: no broadcast
@@ -91,6 +137,7 @@ def test_impala_runners_keep_stale_weights_between_broadcasts():
     algo.train()  # update 3 broadcasts, update 4 steps past it
     assert not np.array_equal(runner_w(), start)
     assert not np.array_equal(runner_w(), core.params_to_numpy(algo.module)["pi"][0]["w"])
+    algo.stop()
 
 
 def test_sac_learns_cartpole():
@@ -107,7 +154,9 @@ def test_sac_learns_cartpole():
 
 def test_ppo_with_connector_pipeline():
     """PPO with a stateful env-to-module pipeline and state sync across 2
-    runners: every runner ends on the merged base state."""
+    runner actors: each runner holds its own pipeline (their states differ
+    after a sample of their own), and every runner ends on the merged base
+    state."""
     algo = (rllib.PPOConfig().environment("CartPole-v1")
             .env_runners(num_env_runners=2, num_envs_per_env_runner=2,
                          rollout_fragment_length=32,
@@ -115,13 +164,23 @@ def test_ppo_with_connector_pipeline():
                              rllib.NormalizeObservations()))
             .training(epochs=1, minibatches=2, hidden=16)
             .resources(device="cpu").build())
-    assert algo.runners[0].env_to_module is not algo.runners[1].env_to_module
+
+    def states():
+        return ray_tpu_torch.get([r.get_connector_state.remote() for r in algo.runners],
+                                 timeout=60)
+
+    ray_tpu_torch.get([r.sample.remote(4) for r in algo.runners], timeout=60)
+    own = [s["0:NormalizeObservations"]["delta"]["mean"] for s in states()]
+    assert not np.array_equal(own[0], own[1])  # different seeds, different observations
     algo.train()
     r2 = algo.train()
     assert r2["training_iteration"] == 2 and np.isfinite(r2["loss"])
-    states = [r.get_connector_state() for r in algo.runners]
-    assert all("base" in s["0:NormalizeObservations"] for s in states)
-    assert states[0]["0:NormalizeObservations"]["base"]["count"] == 2 * 2 * 2 * 33
+    synced = [s["0:NormalizeObservations"] for s in states()]
+    assert all("base" in s for s in synced)
+    np.testing.assert_array_equal(synced[0]["base"]["mean"], synced[1]["base"]["mean"])
+    # each runner's own 2 x 4 steps, then 2 iterations x 2 runners x 2 envs x 33
+    assert synced[0]["base"]["count"] == synced[1]["base"]["count"] == 2 * 2 * 2 * 33 + 2 * 2 * 5
+    algo.stop()
 
 
 class TwoAgentTag(rllib.MultiAgentEnv):
@@ -236,3 +295,103 @@ def test_cql_penalty_suppresses_unlogged_actions(tmp_path):
     with torch.no_grad():
         q1 = algo.get_weights()["q1"](torch.as_tensor(obs[:128])).numpy()
     assert float((q1[:, 0] > q1[:, 1]).mean()) > 0.9
+
+
+# ------------------------------------------------------ the runtime's designs
+@pytest.mark.parametrize("config", [rllib.PPOConfig, rllib.DQNConfig, rllib.IMPALAConfig,
+                                    rllib.APPOConfig, rllib.SACConfig],
+                         ids=["ppo", "dqn", "impala", "appo", "sac"])
+def test_runners_are_actors_sampling_on_the_host_cpu(config):
+    """Every algorithm's runners are actors in processes of their own,
+    each with its own policy on the CPU."""
+    algo = (config().environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=2,
+                         rollout_fragment_length=8)
+            .training(hidden=16).resources(device="cpu").build())
+    algo.train()
+    stats = ray_tpu_torch.get([r.runner_stats.remote() for r in algo.runners], timeout=60)
+    pids = [s["pid"] for s in stats]
+    assert len(set(pids)) == 2 and os.getpid() not in pids, pids
+    assert all(s["device"] == "cpu" and s["samples"] >= 1 and s["sample_s"] > 0
+               for s in stats), stats
+    algo.stop()
+
+
+def test_multi_learner_group_syncs():
+    """JAX's case: 2 learner actors with collective sync (params + Adam
+    moments) over gloo, met through the runtime's GCS KV; the rank with
+    the smaller shard still joins the sync, and both learners end in an
+    identical state."""
+    algo = (rllib.PPOConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=3, num_envs_per_env_runner=2,
+                         rollout_fragment_length=32)
+            .learners(num_learners=2)
+            .training(minibatches=2, epochs=2, hidden=32)
+            .resources(device="cpu").build())
+    r1, r2 = algo.train(), algo.train()
+    assert np.isfinite(r1["loss"]) and np.isfinite(r2["loss"])
+    w = [core.params_to_numpy(m) for m in ray_tpu_torch.get(
+        [ln.get_weights.remote() for ln in algo.learners], timeout=60)]
+    for path in (("pi", 0, "w"), ("pi", 2, "b"), ("vf", 1, "w")):
+        a, b = (tree[path[0]][path[1]][path[2]] for tree in w)
+        np.testing.assert_allclose(a, b, atol=1e-5)
+    # the Adam moments are averaged too; each learner keeps its own step count
+    states = ray_tpu_torch.get([ln.get_state.remote() for ln in algo.learners], timeout=60)
+    assert len({st["pid"] for st in states} | {os.getpid()}) == 3
+    for k, a in states[0]["tensors"].items():
+        if not k.startswith("step/"):
+            np.testing.assert_allclose(a, states[1]["tensors"][k], atol=1e-5, err_msg=k)
+    algo.stop()
+
+
+def test_impala_requests_stay_standing(monkeypatch):
+    """Every runner always has a sample request in flight: each wait sees
+    one per runner and takes the first ready one, whose runner is
+    relaunched before the next wait."""
+    waits = []
+    wait = ray_tpu_torch.wait
+
+    def spy(refs, num_returns=1, timeout=None, **kw):
+        waits.append((len(refs), num_returns))
+        return wait(refs, num_returns=num_returns, timeout=timeout, **kw)
+
+    algo = (rllib.IMPALAConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=2,
+                         rollout_fragment_length=8)
+            .training(batches_per_iter=4, hidden=16).resources(device="cpu").build())
+    monkeypatch.setattr(ray_tpu_torch, "wait", spy)
+    for _ in range(2):
+        assert algo.train()["batches_consumed"] in (4, 8)
+        assert sorted(h.actor_id.hex() for h in algo._inflight.values()) == \
+            sorted(r.actor_id.hex() for r in algo.runners)
+    assert waits == [(2, 1)] * 8
+    algo.stop()
+
+
+def test_offline_shards_are_read_as_tasks(tmp_path, monkeypatch):
+    """OfflineData reads each JSONL shard in a task and gathers the
+    results in order: the table is the shards' concatenation."""
+    from ray_tpu_torch.core.ref import ObjectRef
+    from ray_tpu_torch.rllib import offline
+
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        rllib.write_rollouts(str(tmp_path / f"part{i}.jsonl"), [{
+            "obs": rng.normal(size=(5 + i, 4)), "actions": rng.integers(0, 2, 5 + i),
+            "rewards": rng.normal(size=5 + i), "dones": np.zeros(5 + i),
+            "next_obs": rng.normal(size=(5 + i, 4))}])
+    refs = []
+    task = offline._read_shard
+
+    class Spy:
+        def remote(self, path):
+            refs.append(task.remote(path))
+            return refs[-1]
+
+    monkeypatch.setattr(offline, "_read_shard", Spy())
+    data = rllib.OfflineData(str(tmp_path))
+    assert len(refs) == 3 and all(isinstance(r, ObjectRef) for r in refs)
+    want = [offline.read_shard(str(tmp_path / f"part{i}.jsonl")) for i in range(3)]
+    assert data.n == 18
+    for k in want[0]:
+        np.testing.assert_array_equal(data.table[k], np.concatenate([w[k] for w in want]))
