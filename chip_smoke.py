@@ -37,7 +37,7 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               and whether bitwise), and a CollectiveNode (allreduce_bind
               over a float32 CUDA tensor in a gloo group met through the
               GCS KV) must give the sum on both stages. Printed: ms per
-              iteration over 8 executes with overlap on and off and through
+              iteration over 4 executes with overlap on and off and through
               a chain of .remote calls; each stage's period, input wait,
               compute and forward from its loop's timeline; the hidden
               state's hop (stage 0's write + stage 1's read, sequential
@@ -110,7 +110,7 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               1e-4): one step's gradients with "auto" against "plain" on the
               same routing (loss within 3e-2, every leaf's relative L2 <=
               3e-2; SDPA against plain printed beside, as in moe_forward),
-              then one warm-up step and TRAIN_STEPS (20) timed steps
+              then one warm-up step and MOE_TRAIN_STEPS (5) timed steps
               launching 8/8/8 kernels each, the loss finite and falling.
 8. parallel — one NCCL process group of world size 1 in this process (file
               rendezvous in a temp dir) and its DeviceMesh: ring_attention,
@@ -124,10 +124,11 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               into a num_gpus=1 actor as a task argument (restored on its
               card, or on its host) and back out of it as a return, bytes
               equal each time, with put, get, argument and round-trip GB/s
-              (host clock, twice each) and the actor's start and first-tensor
+              (host clock, once each) and the actor's start and first-tensor
               seconds; then a num_gpus=1 task sees CUDA_VISIBLE_DEVICES "0"
               and the card's name; no worker loads jax or ray_tpu. The
-              runtime stays up for phases 10-16, and is shut down after them.
+              runtime stays up for phases 10-18 (tune_trainer and workflow
+              included), and is shut down after them.
 10. sharded — the sharded object plane on that runtime: the Llama-3-8B
               embedding [128256, 4096] bf16 on the card, put_sharded by
               PartitionRules.llama() at tok/embedding on MeshSpec(fsdp=2,
@@ -184,8 +185,9 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               numpy giving the sum on both ranks.
 16. dryrun  — ray_tpu_torch.entry.dryrun_multichip(1): NCCL at world size 1,
               then the trainer arm's two workers and the sharded arm.
-              Every TorchTrainer group (phases 13-17) meets through the
-              runtime's GCS KV (rank 0 publishes its store's address).
+              Every TorchTrainer group (phases 13-17 and tune_trainer) meets
+              through the runtime's GCS KV (rank 0 publishes its store's
+              address).
 17. data_trainer — ray_tpu_torch.data feeding TorchTrainer(num_workers=1),
               NCCL: a from_numpy dataset of the train phase's token rows
               [2, 2049] (int64) repeated 21 times (42 rows in 7 blocks),
@@ -197,13 +199,42 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               worker; rows received, batch bytes, step ms, the wait for each
               batch, seconds from fit() to the first report and the
               rendezvous's seconds.
+   tune_trainer — ray_tpu_torch.tune: Tuner over a TorchTrainer of the
+              trainer phase's step (8 layers, bf16, remat) with
+              param_space {"train_loop_config": {"lr": grid_search([1e-4,
+              3e-4])}}, max_concurrent_trials=2: each trial an actor
+              holding no card (CPU 0.5) whose fit() runs one worker leasing
+              GPU 0.5, so both trials' workers share the card; 2 warm-up
+              and 4 timed steps each, the workers checking in before their
+              timed steps. Both trials TERMINATED, 8/8/8 launches every
+              timed step read in each worker, equal step-1 losses, the 1e-4
+              trial's losses equal to the train phase's (within 1e-6
+              relative), the 3e-4 trial's later losses different,
+              get_best_result() the trial with the lower final loss, the
+              timed windows overlapping (the workers' stamps). Printed: each
+              trial's step median, fit() to its first step, peak memory, and
+              the card's least free memory while both stepped.
+   workflow — ray_tpu_torch.workflow on that runtime: make_tokens (host
+              CPU: the forward phase's token rows) -> score (leases the
+              card: its task worker draws the seed-0 Llama-3-8B weights and
+              runs the 32-layer bf16 llama_forward on [2, 2048], returning
+              the last position's logits as a CUDA tensor) -> summarize
+              (argmax and a checksum on the host, leasing a tenth of the
+              card to read that tensor). score must launch the flash
+              forward 32 times, counted in its task; the logits must be
+              within 1e-6 relative L2 of the forward phase's last position;
+              resume() must return the same output from the checkpoints
+              (the CUDA tensor kept as host bytes, restored on the card)
+              running no step and launching nothing; a second workflow
+              whose score's first worker dies (max_retries=1) must give
+              the same output.
 18. data_batch — build_llm_processor(cfg, params=None, batch_size=8) as the
               data executor's map tasks on the runtime's task workers, each
               drawing its own seed-0 weights on the card: at 2 layers,
               float32, full width, 8 equal-length prompts (one block): every
               row's completion_tokens equal the driver's generate with the
-              same init; at 32 layers, bf16, those prompts 5 times (40
-              rows, 5 blocks of 8): rows, tokens/s, seconds to the first
+              same init; at 32 layers, bf16, those prompts 3 times (24
+              rows, 3 blocks of 8): rows, tokens/s, seconds to the first
               block, the task workers' pids; then the same map as a
               callable class on ActorPoolStrategy(size=1): its tokens equal
               the task run's, one pid on every row. Each task and the
@@ -234,6 +265,13 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               max(60, 1.5 x first), params on cuda; per iteration sample ms
               (the slowest runner's, read in the runners), update ms (the
               rest of train()) and env steps/s.
+   tune_rllib — Tuner over PPO.as_trainable(rllib_ppo's config,
+              stop_iters=3), param_space {"lr": grid_search([1e-3, 3e-3])},
+              two trials at once on the RL runtime (each an actor holding no
+              card; runner actors on the host CPU, a learner actor leasing
+              the whole card, so the second waits for the first's): both TERMINATED with 3 reports, the 1e-3 trial's
+              per-iteration return and loss equal to rllib_ppo's first 3,
+              and 0 flash launches read in every learner actor.
 21. rllib_offpolicy — DQN, IMPALA (standing sample requests), APPO and SAC
               at their JAX tests' settings and iteration counts, each held
               to its test's bar, and the two-agent runner (TwoAgentTag, in
@@ -273,6 +311,7 @@ H100_F32_FLOPS = 67e12    # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 SEED = 0
 TRAIN_STEPS = 20  # timed train steps: their median is the step time
+MOE_TRAIN_STEPS = 5  # moe_train's timed steps (each over a second)
 
 
 _STARTED = time.perf_counter()
@@ -629,7 +668,7 @@ def timed(fn):
 
 def phase_forward(card: str, kernels, cfg, params, tokens):
     """Returns (flash launches on the main path, the 2-layer float32 config
-    and weights)."""
+    and weights, the float32 logits of the last position)."""
     import torch
 
     from ray_tpu_torch.models.llama import llama_forward, llama_init, llama_loss
@@ -653,6 +692,7 @@ def phase_forward(card: str, kernels, cfg, params, tokens):
         if not bool(torch.isfinite(logits).all()) or not math.isfinite(float(loss)):
             raise AssertionError("non-finite logits or loss")
         err = rel_l2(logits, plain)
+        last = logits[:, -1].float().clone()  # the workflow phase's reference
         del logits, plain
         fwd_ms = {"auto": [], "plain": []}
         for impl in ("plain", "auto", "auto", "plain"):  # in turns, one card
@@ -681,11 +721,11 @@ def phase_forward(card: str, kernels, cfg, params, tokens):
               "tol": 1e-4})
         if not err32 <= 1e-4:
             raise AssertionError(f"f32 forward disagrees with plain attention: {err32}")
-    return launches, cfg32, params32
+    return launches, cfg32, params32, last
 
 
 DAG_STORE_BYTES = 2 << 30  # a closed channel keeps its cell: two graphs of 64 MiB cells
-DAG_ITERS = 8  # timed executes per mode
+DAG_ITERS = 4  # timed executes per mode
 DAG_BUFFER = 64 << 20  # the hidden state is 32 MiB
 DAG_TOL = 3e-2  # the forward phase's bf16 bound, printed as the phase's tol
 # the stages run the in-process forward's ops on the same weights and
@@ -2063,6 +2103,7 @@ def phase_moe_forward(card: str, kernels) -> dict:
         with Routing(replay=auto_routes):  # plain attention, the kernel run's routing
             plain, forced_aux = llama_forward(params, tokens, cfg, attn_impl="plain")
         err = rel_l2(logits, plain)
+        last = logits[:, -1].float().clone()  # the workflow phase's reference
         del logits, plain
         fwd_ms = {"auto": [], "plain": []}
         for impl in ("plain", "auto", "auto", "plain", "plain", "auto"):  # in turns
@@ -2185,7 +2226,7 @@ def phase_moe_train(card: str, kernels) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.LAUNCHES.clear()  # the main path starts here
-    for _ in range(TRAIN_STEPS):
+    for _ in range(MOE_TRAIN_STEPS):
         before = kernels.launches()
         (params, state, loss), ms = timed(lambda: step(params, state, batch))
         now = kernels.launches()
@@ -2301,7 +2342,7 @@ def phase_parallel(card: str) -> None:
 # The loops below run inside TorchTrainer's worker processes, which import
 # this script as a module by name (a loop must be importable).
 TRAINER_WARMUP = 3
-ATTRIBUTION_STEPS = 20  # trainer: mesh and no-mesh steps, alternating
+ATTRIBUTION_STEPS = 5  # trainer: mesh and no-mesh steps, alternating
 HYPER = dict(learning_rate=1e-2, b1=0.9, b2=0.99, eps=1e-6, weight_decay=1e-2)
 DP2_CFG = dict(vocab_size=32000, d_model=1024, n_layers=2, n_heads=8, n_kv_heads=8, d_ff=2816,
                max_seq_len=2048, dtype="float32")
@@ -2313,7 +2354,7 @@ DP2_CFG = dict(vocab_size=32000, d_model=1024, n_layers=2, n_heads=8, n_kv_heads
 # the phase's time, and the script has a time limit
 RUNTIME_TENSOR_BYTES = 256 << 20
 RUNTIME_STORE_BYTES = 8 << 30  # the shm arena: a few such objects alive at once
-RUNTIME_REPS = 2  # each transfer twice: the first touches a cold arena
+RUNTIME_REPS = 1  # each transfer once, into a cold arena
 
 
 def _foreign_modules() -> list:
@@ -2923,14 +2964,13 @@ def _no_tf32():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def trainer_loop(config):
+def _trainer_step(config, lr):
     """The train phase's step in a worker: Llama-3-8B width cut to
-    ``layers``, bf16, remat, AdamW lr 1e-4, params placed by
-    shard_pytree on the (one-rank) mesh; warm-up and timed steps, the flash
-    launches of each step read here, in the worker."""
+    ``config["layers"]``, bf16, remat, AdamW at ``lr``, weights and batch
+    drawn from ``config["seed"]``, params placed by shard_pytree on the
+    (one-rank) mesh. Returns (cfg, optimizer, params, state, step, batch)."""
     import torch
 
-    from ray_tpu_torch import kernels, train
     from ray_tpu_torch.models.llama import AdamW, LlamaConfig, llama_init, make_train_step
     from ray_tpu_torch.parallel.mesh import MeshSpec
     from ray_tpu_torch.parallel.sharding import PartitionRules, shard_pytree
@@ -2943,25 +2983,60 @@ def trainer_loop(config):
                                      device="cuda")}
     mesh = MeshSpec().build()
     params = shard_pytree(params, PartitionRules.llama(), mesh)
-    opt = AdamW(1e-4)
-    state = opt.init(params)
-    step = make_train_step(cfg, opt, mesh=mesh)
+    opt = AdamW(lr)
+    return cfg, opt, params, opt.init(params), make_train_step(cfg, opt, mesh=mesh), batch
+
+
+def _run_steps(step, params, state, batch, warmup: int, steps: int, after_first=None,
+               before_timed=None) -> dict:
+    """``warmup`` then ``steps`` timed steps: every step's loss, each timed
+    step's ms and flash launches (read here, from 0 at the first timed
+    step), the launches over the timed steps, the peak memory from there,
+    and the timed window's wall stamps. ``after_first(loss)`` runs after
+    step 1, ``before_timed()`` before the first timed step."""
+    import torch
+
+    from ray_tpu_torch import kernels
+
     losses, step_ms, per_step = [], [], []
-    for i in range(TRAINER_WARMUP + config["steps"]):
-        if i == TRAINER_WARMUP:  # the timed steps start here
+    start = None
+    for i in range(warmup + steps):
+        if i == warmup:  # the timed steps start here
+            if before_timed is not None:
+                before_timed()
             torch.cuda.reset_peak_memory_stats()
             kernels.LAUNCHES.clear()
+            start = time.time()
         before = kernels.launches()
         (params, state, loss), ms = timed(lambda: step(params, state, batch))
         now = kernels.launches()
         losses.append(float(loss))
-        if i >= TRAINER_WARMUP:
+        if i >= warmup:
             step_ms.append(ms)
             per_step.append({n: now[n] - before[n] for n in kernels.KERNELS})
-        if i == 0:
-            train.report({"step": 1, "loss": losses[0], "t": time.time()})
-    launches = dict(kernels.launches())
-    peak = torch.cuda.max_memory_allocated()
+        if i == 0 and after_first is not None:
+            after_first(losses[0])
+    return {"losses": losses, "step_ms": step_ms, "launches_per_step": per_step,
+            "launches": dict(kernels.launches()),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "window": [start, time.time()], "params": params, "state": state}
+
+
+def trainer_loop(config):
+    """The train phase's step in a worker (``_trainer_step``, lr 1e-4):
+    warm-up and timed steps, the flash launches of each step read here, in
+    the worker; then the step with and without the mesh, and the collective
+    API on the worker's NCCL group."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import make_train_step
+
+    cfg, opt, params, state, step, batch = _trainer_step(config, 1e-4)
+    run = _run_steps(step, params, state, batch, TRAINER_WARMUP, config["steps"],
+                     after_first=lambda loss: train.report({"step": 1, "loss": loss,
+                                                            "t": time.time()}))
+    params, state = run.pop("params"), run.pop("state")
     # attribution: the same step on the same local tensors without the
     # mesh, alternating with the mesh step, in one process: each step's
     # host time until it returns (its enqueue) and its wall time
@@ -2997,9 +3072,7 @@ def trainer_loop(config):
         "mean_is_float": collective.allreduce(np.arange(3), group,
                                               collective.ReduceOp.MEAN).dtype.kind == "f",
     }
-    train.report({"losses": losses, "step_ms": step_ms, "launches_per_step": per_step,
-                  "launches": launches, "max_memory_allocated": peak, "attribution_ms": arms,
-                  "attribution_enqueue_ms": enqueue,
+    train.report({**run, "attribution_ms": arms, "attribution_enqueue_ms": enqueue,
                   "collective_nccl": checks, "device": torch.cuda.get_device_name(0)})
 
 
@@ -3351,6 +3424,299 @@ def phase_data_trainer(card: str, train_losses: list, train_tokens) -> dict:
     return final["launches"]
 
 
+# ------------------------------------------------------------------ tune
+TUNE_LRS = (1e-4, 3e-4)  # tune_trainer's grid: the train phase's lr and 3x
+TUNE_WARMUP = 2
+TUNE_STEPS = 4  # timed steps a trial, both trials' workers stepping at once
+TUNE_MEET_S = 300  # a trial's worker waits this long for the other's
+
+
+def tune_trainer_loop(config):
+    """The trainer phase's step (``_trainer_step``) at the trial's lr, in
+    the trial's worker: TUNE_WARMUP warm-up and TUNE_STEPS timed steps,
+    each timed step's flash launches read here. Before its timed steps the
+    worker checks in under ``config["rendezvous"]`` and waits until every
+    trial's worker has, so the timed windows are of trials sharing the
+    card (trials run one after another would time out)."""
+    import torch
+
+    from ray_tpu_torch import train
+
+    def meet():
+        open(os.path.join(config["rendezvous"], f"{config['lr']!r}"), "w").close()
+        deadline = time.monotonic() + TUNE_MEET_S
+        while len(os.listdir(config["rendezvous"])) < config["trials"]:
+            if time.monotonic() > deadline:
+                raise TimeoutError("the other trial's worker never reached its timed steps")
+            time.sleep(0.01)
+
+    first = {}
+    _, _, params, state, step, batch = _trainer_step(config, config["lr"])
+    run = _run_steps(step, params, state, batch, TUNE_WARMUP, TUNE_STEPS,
+                     after_first=lambda loss: first.setdefault("t", time.time()),
+                     before_timed=meet)
+    del run["params"], run["state"]
+    train.report({**run, "loss": run["losses"][-1], "t_first": first["t"],
+                  "pid": os.getpid(), "device": torch.cuda.get_device_name(0)})
+
+
+def _sample_free_memory(samples: list, stop):
+    """(wall time, the card's free bytes) every 0.25 s until ``stop`` is set."""
+    import torch
+
+    while not stop.wait(0.25):
+        samples.append((time.time(), torch.cuda.mem_get_info()[0]))
+
+
+def phase_tune_trainer(card: str, train_losses: list) -> dict:
+    """Tuner over a TorchTrainer on the runtime: a grid of two learning
+    rates (TUNE_LRS), two trials at once, each a trial actor (no card) whose
+    fit() runs one worker leasing half the card (GPU 0.5, NCCL at world
+    size 1). Both trials must end TERMINATED with 8/8/8 launches every
+    timed step in their workers and equal step-1 losses; the 1e-4 trial's
+    losses must follow the train phase's (exactly, or within 1e-6
+    relative), the 3e-4 trial's later losses must differ; the best result
+    is the trial with the lower final loss; the timed windows overlap.
+    Returns both workers' launches over their timed steps."""
+    import statistics
+    import tempfile
+    import threading
+    import types
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    samples, stop = [], threading.Event()
+    sampler = threading.Thread(target=_sample_free_memory, args=(samples, stop), daemon=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        rendezvous = os.path.join(tmp, "rendezvous")
+        os.makedirs(rendezvous)
+        trainer = TorchTrainer(
+            tune_trainer_loop,
+            train_loop_config={"layers": 8, "seed": SEED + 2, "rendezvous": rendezvous,
+                               "trials": len(TUNE_LRS)},
+            scaling_config=ScalingConfig(use_gpu=True, resources_per_worker={"GPU": 0.5}),
+            run_config=RunConfig(storage_path=os.path.join(tmp, "runs")))
+        sampler.start()
+        t0 = time.time()
+        try:
+            grid = tune.Tuner(
+                trainer,
+                param_space={"train_loop_config": {"lr": tune.grid_search(list(TUNE_LRS))}},
+                tune_config=tune.TuneConfig(metric="loss", mode="min", max_concurrent_trials=2),
+                run_config=types.SimpleNamespace(storage_path=os.path.join(tmp, "tune"),
+                                                 name="tune_trainer")).fit()
+        finally:
+            stop.set()
+            sampler.join(timeout=5)
+        seconds = time.time() - t0
+    trials = {r.config["train_loop_config"]["lr"]: r for r in grid}
+    errors = {lr: r.error for lr, r in trials.items() if r.error}
+    if errors or sorted(trials) != sorted(TUNE_LRS):
+        raise AssertionError(f"tune_trainer trials failed: {errors or list(trials)}")
+    m = {lr: r.metrics for lr, r in trials.items()}
+    lo, hi = (m[lr] for lr in TUNE_LRS)
+    windows = [m[lr]["window"] for lr in TUNE_LRS]
+    both_up = [max(w[0] for w in windows), min(w[1] for w in windows)]
+    free_both = [f for t, f in samples if both_up[0] <= t <= both_up[1]]
+    pairs = list(zip(lo["losses"], train_losses))
+    rel = max(abs(a - b) / abs(b) for a, b in pairs)
+    best = grid.get_best_result()
+    want = {n: 8 for n in lo["launches_per_step"][0]}
+    emit({"phase": "tune_trainer", "trials": len(grid), "lrs": list(TUNE_LRS),
+          "statuses": {lr: r.status for lr, r in trials.items()},
+          "gpu_per_worker": 0.5, "layers": 8, "tokens": [2, 2049],
+          "warmup": TUNE_WARMUP, "timed_steps": TUNE_STEPS,
+          "losses": {lr: m[lr]["losses"] for lr in TUNE_LRS},
+          "train_phase_losses": train_losses[:len(lo["losses"])],
+          "trajectory_exact": rel == 0.0, "trajectory_max_rel_diff": rel, "trajectory_tol": 1e-6,
+          "step_ms": {lr: m[lr]["step_ms"] for lr in TUNE_LRS},
+          "step_ms_median": {lr: statistics.median(m[lr]["step_ms"]) for lr in TUNE_LRS},
+          "seconds_fit_to_first_report": {lr: m[lr]["t_first"] - t0 for lr in TUNE_LRS},
+          "max_memory_allocated": {lr: m[lr]["max_memory_allocated"] for lr in TUNE_LRS},
+          "mem_free_both_trials_min": min(free_both) if free_both else None,
+          "mem_free_samples_both_up": len(free_both),
+          "timed_windows": windows, "both_up_s": both_up[1] - both_up[0],
+          "launches_per_step": {lr: m[lr]["launches_per_step"] for lr in TUNE_LRS},
+          "worker_pids": {lr: m[lr]["pid"] for lr in TUNE_LRS},
+          "best_lr": best.config["train_loop_config"]["lr"], "seconds": seconds,
+          "worker_device": lo["device"], "card": card})
+    if any(r.status != "TERMINATED" for r in grid):
+        raise AssertionError(f"tune_trainer statuses {[r.status for r in grid]}")
+    for lr in TUNE_LRS:
+        steps = m[lr]["launches_per_step"]
+        if len(steps) != TUNE_STEPS or any(c != want for c in steps) or len(want) != 3:
+            raise AssertionError(f"tune_trainer lr {lr}: kernel launches {steps}")
+    if lo["losses"][0] != hi["losses"][0]:
+        raise AssertionError(f"step-1 losses differ: {lo['losses'][0]} {hi['losses'][0]}")
+    if not rel <= 1e-6:
+        raise AssertionError(f"the lr {TUNE_LRS[0]} trial's losses {lo['losses']} do not "
+                             f"follow the train phase's {train_losses[:len(pairs)]}")
+    if any(a == b for a, b in zip(lo["losses"][1:], hi["losses"][1:])):
+        raise AssertionError(f"the lr {TUNE_LRS[1]} trial's later losses equal the lr "
+                             f"{TUNE_LRS[0]} trial's: {hi['losses']}")
+    if best.metrics["loss"] != min(lo["loss"], hi["loss"]) or best.status != "TERMINATED":
+        raise AssertionError(f"get_best_result() gave {best}")
+    if not both_up[0] < both_up[1]:
+        raise AssertionError(f"the trials' timed windows do not overlap: {windows}")
+    total = collections.Counter()
+    for lr in TUNE_LRS:
+        total.update(m[lr]["launches"])
+    return dict(total)
+
+
+# ---------------------------------------------------------------- workflow
+def _wf_ran(log_dir: str, step: str) -> None:
+    """Mark one run of a workflow step (a file a run, named by step and pid)."""
+    open(os.path.join(log_dir, f"{step}-{os.getpid()}-{time.time_ns()}"), "w").close()
+
+
+def wf_make_tokens(rows, log_dir):
+    """The workflow's first step, on the host CPU: the forward phase's token
+    rows (host int64 [2, 2049]) as the model's inputs [2, 2048], a CPU
+    tensor. (Their draw needs the card's generator after the weights'
+    draw, so the rows come in as the step's argument.)"""
+    import torch
+
+    _wf_ran(log_dir, "make_tokens")
+    return torch.from_numpy(rows[:, :-1].copy())
+
+
+def wf_score(tokens, log_dir, marker=None):
+    """The workflow's card step (it leases the whole card): in this task's
+    worker, the seed-0 Llama-3-8B weights drawn here and one 32-layer bf16
+    llama_forward of ``tokens`` through the flash forward kernel, its
+    launches counted here from 0. Returns the last position's logits as a
+    CUDA tensor, with the launches and this process's pid. With a
+    ``marker`` that does not exist yet, the first attempt's worker dies
+    (after creating it): the runtime runs the step again."""
+    if marker is not None and not os.path.exists(marker):
+        open(marker, "w").close()
+        os._exit(1)
+    import torch
+
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_forward, llama_init
+
+    _wf_ran(log_dir, "score")
+    _no_tf32()
+    cfg = LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params = llama_init(torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kernels.LAUNCHES.clear()
+    with torch.inference_mode():
+        (logits, _), ms = timed(lambda: llama_forward(params, tokens.cuda(), cfg,
+                                                      attn_impl="auto"))
+        last = logits[:, -1].float().clone()
+    return {"logits": last, "launches": dict(kernels.launches()), "pid": os.getpid(),
+            "init_s": init_s, "forward_ms": ms}
+
+
+def wf_summarize(scored, log_dir):
+    """The workflow's last step: host arithmetic on the logits (each row's
+    argmax and a float64 checksum). Its argument holds a CUDA tensor, which
+    the runtime restores on this process's card, so the step leases a
+    tenth of the card to cover that read. Passes the logits and the score
+    step's readings on as the workflow's output."""
+    _wf_ran(log_dir, "summarize")
+    host = scored["logits"].cpu()
+    return {"tokens": host.argmax(-1).tolist(), "checksum": float(host.double().sum()),
+            "logits": scored["logits"], "score": {k: v for k, v in scored.items()
+                                                  if k != "logits"}}
+
+
+def _wf_dag(workflow, rows, log_dir, marker=None):
+    make = workflow.step(wf_make_tokens, name="make_tokens")
+    score = workflow.step(wf_score, name="score", resources={"GPU": 1.0}, max_retries=1)
+    summarize = workflow.step(wf_summarize, name="summarize", resources={"GPU": 0.1})
+    return summarize.bind(score.bind(make.bind(rows, log_dir), log_dir, marker), log_dir)
+
+
+def phase_workflow(card: str, forward_rows, forward_last) -> dict:
+    """A three-step durable workflow on the runtime (make_tokens on the
+    host CPU, score leasing the card, summarize leasing a tenth of it to
+    read score's CUDA tensor): score's 32 flash launches,
+    counted in its task; the logits within 1e-6 relative L2 of the forward
+    phase's last position (the same ops, weights and card); resume()
+    returning the same output from storage with no step run and no launch;
+    and a second workflow whose score's first worker dies, run again
+    (max_retries=1), giving the same output. Returns score's launches."""
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch import kernels, workflow
+
+    def runs(log_dir):
+        return collections.Counter(f.split("-")[0] for f in os.listdir(log_dir))
+
+    def same(a, b):
+        return (a["tokens"] == b["tokens"] and a["checksum"] == b["checksum"]
+                and torch.equal(a["logits"], b["logits"]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = os.environ.get(workflow.api.STORAGE_ENV)
+        os.environ[workflow.api.STORAGE_ENV] = os.path.join(tmp, "workflows")
+        logs = {name: os.path.join(tmp, name) for name in ("first", "retry")}
+        for d in logs.values():
+            os.makedirs(d)
+        try:
+            t0 = time.perf_counter()
+            out = workflow.run(_wf_dag(workflow, forward_rows, logs["first"]),
+                               workflow_id="score")
+            run_s = time.perf_counter() - t0
+            before = runs(logs["first"])
+            kernels.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            again = workflow.resume("score")
+            resume_s = time.perf_counter() - t0
+            resume_launches = dict(kernels.launches())
+            after = runs(logs["first"])
+            t0 = time.perf_counter()
+            retried = workflow.run(_wf_dag(workflow, forward_rows, logs["retry"],
+                                           os.path.join(tmp, "marker")),
+                                   workflow_id="score_retry")
+            retry_s = time.perf_counter() - t0
+            retry_runs = runs(logs["retry"])
+            first_attempt_died = os.path.exists(os.path.join(tmp, "marker"))
+            status = {w: workflow.get_status(w) for w in ("score", "score_retry")}
+        finally:
+            if saved is None:
+                os.environ.pop(workflow.api.STORAGE_ENV, None)
+            else:
+                os.environ[workflow.api.STORAGE_ENV] = saved
+    rel = rel_l2(out["logits"], forward_last)
+    launches = out["score"]["launches"]
+    emit({"phase": "workflow", "steps": ["make_tokens", "score", "summarize"],
+          "layers": 32, "dtype": "bfloat16", "tokens": list(forward_rows[:, :-1].shape),
+          "score_launches": launches, "logits": list(out["logits"].shape),
+          "logits_device": str(out["logits"].device),
+          "logits_rel_l2_vs_forward": rel, "tol": 1e-6, "bitwise": rel == 0.0,
+          "argmax": out["tokens"], "checksum": out["checksum"],
+          "score_init_s": out["score"]["init_s"], "score_forward_ms": out["score"]["forward_ms"],
+          "run_s": run_s, "step_runs": dict(before), "resume_s": resume_s,
+          "resume_step_runs": dict(after - before), "resume_launches": resume_launches,
+          "resume_same_output": same(out, again),
+          "retry_s": retry_s, "retry_step_runs": dict(retry_runs),
+          "retry_first_attempt_died": first_attempt_died,
+          "retry_score_pid": retried["score"]["pid"], "retry_launches": retried["score"]["launches"],
+          "retry_same_output": same(out, retried), "statuses": status, "card": card})
+    if launches.get("flash_attention_fwd") != 32 or sum(launches.values()) != 32:
+        raise AssertionError(f"score's flash launches {launches}, want 32 forward")
+    if out["logits"].device.type != "cuda" or not rel <= 1e-6:
+        raise AssertionError(f"score's logits on {out['logits'].device}, rel L2 {rel} against "
+                             "the forward phase's")
+    if after != before or any(resume_launches.values()) or not same(out, again):
+        raise AssertionError(f"resume ran steps {dict(after - before)}, launched "
+                             f"{resume_launches}, or changed the output")
+    if not first_attempt_died or retry_runs["score"] != 1 or not same(out, retried) or \
+            set(status.values()) != {"SUCCESSFUL"}:
+        raise AssertionError(f"the retried workflow: runs {dict(retry_runs)}, statuses {status}")
+    return launches
+
+
 def processor_rows(vocab: int) -> list:
     """8 rows of 64-token prompts (the processor's numpy batch format needs
     equal lengths), drawn from serving_server's generator after its
@@ -3426,7 +3792,7 @@ class ProcessorMap:
         return worker_probe(dict(batch, completion_tokens=outs), [len(prompts)])
 
 
-DATA_BATCH_COPIES = 5  # data_batch: the 8 prompts 5 times at 32 layers (5 blocks of 8)
+DATA_BATCH_COPIES = 3  # data_batch: the 8 prompts 3 times at 32 layers (3 blocks of 8)
 
 
 def phase_data_batch(card: str) -> dict:
@@ -3434,7 +3800,7 @@ def phase_data_batch(card: str) -> dict:
     workers (params=None: the worker draws its seed-0 weights on the card;
     each task leases the card, so one runs at a time). At 2 layers,
     float32, one block of 8 rows whose tokens equal the driver's generate
-    with the same init; at 32 layers, bf16, 40 rows in 5 blocks, then the
+    with the same init; at 32 layers, bf16, 24 rows in 3 blocks, then the
     same map on an actor pool of 1 whose tokens equal the tasks'. Every
     block must come from one generate call over its 8 rows. Returns the
     flash launches the blocks' tasks made (0), each block's read in its
@@ -3492,7 +3858,7 @@ def phase_data_batch(card: str) -> dict:
     torch.cuda.empty_cache()
     same32 = [r["completion_tokens"].tolist() == w for r, w in zip(out32, want32)]
 
-    # bf16, 32 layers: 40 rows in 5 blocks on task workers, then an actor pool
+    # bf16, 32 layers: 24 rows in 3 blocks on task workers, then an actor pool
     rows_n = [dict(r, id=i) for i, r in enumerate(rows * DATA_BATCH_COPIES)]
     n_blocks = len(rows_n) // 8
     proc = build_llm_processor(cfg, batch_size=8, max_new_tokens=DATA_MAX_TOKENS)
@@ -3765,8 +4131,8 @@ def rl_runner_stats(algo) -> list:
 
 
 def rl_curve(algo, iters: int, steps_per_sample: int) -> dict:
-    """``iters`` train() calls: per iteration the mean return, the sample
-    ms (the slowest runner's; the runners sample in parallel), the rest of
+    """``iters`` train() calls: per iteration the mean return, the loss,
+    the sample ms (the slowest runner's; the runners sample in parallel), the rest of
     train() (updates, replay, weight broadcasts) as update ms, and the env
     steps per second of all runners; the runners' pids (each must differ
     from this process's) and devices."""
@@ -3774,11 +4140,13 @@ def rl_curve(algo, iters: int, steps_per_sample: int) -> dict:
     import torch
 
     stats = rl_runner_stats(algo)  # reset the runners' clocks
-    rets, sample_ms, update_ms, rates = [], [], [], []
+    rets, losses, sample_ms, update_ms, rates = [], [], [], [], []
     for _ in range(iters):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ret = algo.train()["episode_return_mean"]
+        result = algo.train()
+        ret = result["episode_return_mean"]
+        losses.append(result["loss"])
         torch.cuda.synchronize()
         total = (time.perf_counter() - t0) * 1e3
         stats = rl_runner_stats(algo)
@@ -3790,7 +4158,7 @@ def rl_curve(algo, iters: int, steps_per_sample: int) -> dict:
                          for st in stats if st["sample_s"] > 0))
     finite = [r for r in rets if not np.isnan(r)]
     pids = [st["pid"] for st in stats]
-    return {"returns": rets, "first": finite[0] if finite else None,
+    return {"returns": rets, "losses": losses, "first": finite[0] if finite else None,
             "best": max(finite) if finite else 0.0, "sample_ms": sample_ms,
             "update_ms": update_ms, "env_steps_per_s": rates,
             "device": next(algo.get_weights().parameters()).device.type,
@@ -3818,15 +4186,16 @@ def _rl_learner_probe():
     return ProbedLearner
 
 
-def rl_build_probed(config):
-    """``config.build()`` with PPO's learner actors made from
-    _rl_learner_probe's class, config and arguments unchanged."""
+def rl_build_probed(config, algo_cls=None):
+    """``config.build()`` (as ``algo_cls``, PPO by default) with PPO's
+    learner actors made from _rl_learner_probe's class, config and
+    arguments unchanged."""
     from ray_tpu_torch.rllib import ppo
 
     saved = ppo.Learner
     ppo.Learner = _rl_learner_probe()
     try:
-        return config.build()
+        return (algo_cls or ppo.PPO)(config)
     finally:
         ppo.Learner = saved
 
@@ -3840,19 +4209,27 @@ def rl_learner_launches(algo, reset: bool = False) -> list:
     return rt.get([ln.launches.remote() for ln in algo.learners], timeout=120)
 
 
-def phase_rllib_ppo(card: str) -> dict:
+def rl_ppo_config(cls=None):
+    """rllib_ppo's config (test_ppo_learns_cartpole's settings, seed 0), as
+    a ``cls`` (PPOConfig by default)."""
+    from ray_tpu_torch.rllib import PPOConfig
+
+    return ((cls or PPOConfig)().environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                         rollout_fragment_length=128)
+            .training(lr=1e-3, minibatches=4, epochs=4, hidden=64))
+
+
+def phase_rllib_ppo(card: str) -> tuple[dict, dict]:
     """PPO on the port's CartPole-v1 at test_ppo_learns_cartpole's settings
     (2 runners x 4 envs x 128 steps, lr 1e-3, 4 epochs x 4 minibatches,
     hidden 64), 8 iterations on the card: best > max(60, 1.5 x first),
     params on cuda, no flash launch in the driver or in the learner actor
-    (the runners sample on the host CPU, where no kernel launches)."""
+    (the runners sample on the host CPU, where no kernel launches).
+    Returns the launches and the run (rl_curve's readings)."""
     from ray_tpu_torch import kernels
-    from ray_tpu_torch.rllib import PPOConfig
 
-    algo = rl_build_probed(PPOConfig().environment("CartPole-v1")
-                           .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
-                                        rollout_fragment_length=128)
-                           .training(lr=1e-3, minibatches=4, epochs=4, hidden=64))
+    algo = rl_build_probed(rl_ppo_config())
     rl_learner_launches(algo, reset=True)
     kernels.LAUNCHES.clear()  # the main path starts here
     run = rl_curve(algo, 8, 4 * 128)
@@ -3870,6 +4247,92 @@ def phase_rllib_ppo(card: str) -> dict:
                              f"(driver {os.getpid()}), flash {flash}")
     if run["first"] is None or not run["best"] > max(60.0, 1.5 * run["first"]):
         raise AssertionError(f"PPO did not learn: first {run['first']}, best {run['best']}")
+    return flash, run
+
+
+TUNE_RL_ITERS = 3  # tune_rllib: train() calls a trial
+
+
+def _rl_tune_config_class():
+    """PPOConfig whose build() gives a PPO with _rl_learner_probe's learner
+    actors (their launch counts set to 0 at the build), each train() result
+    carrying every learner's flash launches since then: the counts travel
+    with the trial's reports, read where the updates run."""
+    from ray_tpu_torch.rllib import ppo
+
+    class ProbedPPO(ppo.PPO):
+        def train(self):
+            return {**super().train(), "learner_flash_launches": rl_learner_launches(self)}
+
+    class ProbedPPOConfig(ppo.PPOConfig):
+        def build(self):
+            algo = rl_build_probed(self, ProbedPPO)
+            rl_learner_launches(algo, reset=True)
+            return algo
+
+    return ProbedPPOConfig
+
+
+def phase_tune_rllib(card: str, direct: dict) -> dict:
+    """Tuner over PPO.as_trainable(rllib_ppo's config, stop_iters=3) on the
+    RL runtime, a grid of rllib_ppo's lr and 3x: two trial actors (no card)
+    at once, each building PPO with runner actors on the host CPU and a
+    learner actor leasing the whole card, so the learners run one after
+    the other. Both trials must end TERMINATED with
+    3 reports; the trial at rllib_ppo's lr must report rllib_ppo's
+    episode_return_mean and loss of the same iterations (``direct``: the
+    same config and seed); 0 flash launches in every learner actor.
+    Returns the learners' launches."""
+    import tempfile
+    import types
+
+    from ray_tpu_torch import rllib, tune
+
+    cfg = rl_ppo_config(_rl_tune_config_class())
+    lrs = [cfg.lr, 3 * cfg.lr]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        grid = tune.Tuner(
+            rllib.PPO.as_trainable(cfg, stop_iters=TUNE_RL_ITERS),
+            param_space={"lr": tune.grid_search(lrs)},
+            # two trials at once: the second trial's learner waits for the
+            # first's card lease (RL_ACTOR_WAIT_S)
+            tune_config=tune.TuneConfig(metric="episode_return_mean", mode="max",
+                                        max_concurrent_trials=2),
+            run_config=types.SimpleNamespace(storage_path=tmp, name="tune_rllib")).fit()
+    seconds = time.perf_counter() - t0
+    trials = {r.config["lr"]: r for r in grid}
+    hist = {lr: r.metrics_history for lr, r in trials.items()}
+    errors = {lr: r.error for lr, r in trials.items() if r.error}
+    if errors or sorted(trials) != sorted(lrs):
+        raise AssertionError(f"tune_rllib trials failed: {errors or list(trials)}")
+    got = [(m["episode_return_mean"], m["loss"]) for m in hist[lrs[0]]]
+    want = list(zip(direct["returns"], direct["losses"]))[:TUNE_RL_ITERS]
+    equal = len(got) == len(want) and all(
+        a == b or (math.isnan(a) and math.isnan(b))
+        for pair in zip(got, want) for a, b in zip(*pair))
+    flash = collections.Counter()
+    for h in hist.values():
+        for counts in h[-1]["learner_flash_launches"]:  # each learner's, since the build
+            flash.update(counts)
+    flash = dict(flash)
+    emit({"phase": "tune_rllib", "trials": len(grid), "lrs": lrs,
+          "statuses": {lr: r.status for lr, r in trials.items()},
+          "reports": {lr: len(h) for lr, h in hist.items()},
+          "returns": {lr: [m["episode_return_mean"] for m in h] for lr, h in hist.items()},
+          "losses": {lr: [m["loss"] for m in h] for lr, h in hist.items()},
+          "rllib_ppo_returns_losses": want, "equal_to_rllib_ppo": equal,
+          "iteration_ms": {lr: [m["time_this_iter_s"] * 1e3 for m in h]
+                           for lr, h in hist.items()},
+          "learner_flash_launches": flash, "seconds": seconds, "card": card})
+    if any(r.status != "TERMINATED" for r in grid) or \
+            any(len(h) != TUNE_RL_ITERS for h in hist.values()):
+        raise AssertionError(f"tune_rllib: statuses {[r.status for r in grid]}, "
+                             f"reports {[len(h) for h in hist.values()]}")
+    if not equal:
+        raise AssertionError(f"the tuned trial reported {got}, rllib_ppo {want}")
+    if sum(flash.values()):
+        raise AssertionError(f"flash launches in the tuned learners: {flash}")
     return flash
 
 
@@ -4090,6 +4553,10 @@ def phase_rllib_offline(card: str) -> dict:
 
 
 RL_STORE_BYTES = 1 << 30  # rollouts, weight trees and offline shards
+# a call on an actor still waiting for its lease fails after the runtime's
+# worker_start_timeout_s (ROADMAP Queue 3, 8): a tuned PPO trial's learner
+# waits for the other trial's whole-card lease, ~30-50 s
+RL_ACTOR_WAIT_S = 300.0
 
 RL_LEARNER = {"obs_dim": 4, "n_actions": 2, "hidden": 64, "lr": 1e-3, "epochs": 4,
               "minibatches": 4, "seed": SEED + 22, "collective_backend": "gloo"}
@@ -4216,7 +4683,8 @@ def main() -> int:
     emit({"phase": "init", "config": "llama3_8b", "seconds": init_ms / 1e3,
           "params": tree_numel(params)})
     tokens = torch.randint(0, cfg.vocab_size, (2, 2049), generator=g, device="cuda")
-    launches, cfg32, params32 = phase_forward(card, kernels, cfg, params, tokens)
+    launches, cfg32, params32, forward_last = phase_forward(card, kernels, cfg, params, tokens)
+    forward_rows = tokens.cpu().numpy()  # the workflow phase's make_tokens step takes these
     dag_launches = phase_dag_pipeline(card, cfg, params, tokens)
     serve_launches, prompts, planned, planned_ttft, ref32 = phase_serving(
         card, kernels, cfg, params, cfg32, params32)
@@ -4252,6 +4720,9 @@ def main() -> int:
     phase_trainer_dp2(card)
     phase_dryrun(card)
     data_trainer_launches = phase_data_trainer(card, train_losses, train_tokens)
+    tune_trainer_launches = phase_tune_trainer(card, train_losses)
+    workflow_launches = phase_workflow(card, forward_rows, forward_last)
+    del forward_last
     # after every phase that needs the card: its workers lease the card
     data_batch_launches = phase_data_batch(card)
     import ray_tpu_torch
@@ -4262,9 +4733,15 @@ def main() -> int:
     phase_rllib_parity(card)
     # the RL drivers' runner actors, PPO's learner actors and the offline
     # shard tasks run on a runtime of their own
+    from ray_tpu_torch import config
+
+    config.set_config(dataclasses.replace(config.get_config(),
+                                          worker_start_timeout_s=RL_ACTOR_WAIT_S))
     ray_tpu_torch.init(object_store_memory=RL_STORE_BYTES)
     rl_launches = collections.Counter()
-    rl_launches.update(phase_rllib_ppo(card))
+    ppo_launches, ppo_run = phase_rllib_ppo(card)
+    rl_launches.update(ppo_launches)
+    tune_rllib_launches = phase_tune_rllib(card, ppo_run)
     rl_launches.update(phase_rllib_offpolicy(card))
     rl_launches.update(phase_rllib_offline(card))
     rl_launches.update(phase_rllib_learners(card))
@@ -4296,6 +4773,12 @@ def main() -> int:
                "serve_disagg_launches": serve_disagg_launches.get(name, 0),
                "data_trainer_launches": data_trainer_launches[name],
                "data_batch_launches": data_batch_launches.get(name, 0),
+               # both trials' workers over their timed steps (8 a step each)
+               "tune_trainer_launches": tune_trainer_launches.get(name, 0),
+               # read in the tuned PPO trials' learner actors
+               "tune_rllib_launches": tune_rllib_launches.get(name, 0),
+               # the workflow's score step, counted in its task
+               "workflow_launches": workflow_launches.get(name, 0),
                # both stages' launches over dag_pipeline's timed overlap executes
                "dag_pipeline_launches": sum(dag_launches.values())
                if name == "flash_attention_fwd" else 0,

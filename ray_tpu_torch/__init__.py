@@ -4,7 +4,8 @@ A package beside ``ray_tpu`` that imports ``torch`` (never ``jax``, and
 nothing of ``ray_tpu``) and mirrors its layout: the task/actor runtime
 (``core``, ``_native``, ``config``, ``runtime_env``, ``util``,
 ``devtools.chaos``), ``sharded``, ``ops``, ``models``, ``llm``, ``serve``,
-``data``, ``parallel``, ``collective``, ``train``, ``rllib``,
+``data``, ``dag``, ``parallel``, ``collective``, ``train``, ``tune``
+(with ``air``'s logger callbacks), ``workflow``, ``rllib``,
 ``accelerators`` and ``utils``. Every Pallas TPU kernel on a ported path
 becomes a kernel written by hand for Hopper (``csrc/``, built by
 ``kernels``). Entry points run on the CUDA card unless the caller passes

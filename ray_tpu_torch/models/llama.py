@@ -50,6 +50,7 @@ from ray_tpu_torch.parallel.moe import moe_ffn_local
 from ray_tpu_torch.parallel.pipeline import pipeline_apply, stack_stage_params
 from ray_tpu_torch.parallel.sharding import PartitionRules
 from ray_tpu_torch.utils.device import resolve_device
+from ray_tpu_torch.utils.serialization import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,9 +240,7 @@ _COMPUTE = PartitionRules([
 def _stored(t, mesh) -> tuple:
     """How a param leaf is stored, as (axis, dim) pairs: () for a whole
     tensor; a ``DTensor`` (from ``shard_pytree``) must sit on ``mesh``."""
-    from torch.distributed.tensor import DTensor
-
-    if not isinstance(t, DTensor):
+    if not is_dtensor(t):
         return ()
     if mesh is None:
         raise ValueError("shard_pytree params need the mesh they were placed on (mesh=...)")
@@ -594,9 +593,7 @@ def _shard_leaf(t):
     ``DTensor``), any other tensor as it is. Updating the shards as plain
     tensors keeps ``DTensor``'s per-op sharding propagation, which is slow
     over a six-axis mesh, out of the optimizer step."""
-    from torch.distributed.tensor import DTensor
-
-    return t._local_tensor if isinstance(t, DTensor) else t
+    return t._local_tensor if is_dtensor(t) else t
 
 
 class AdamW:

@@ -259,30 +259,39 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, sm_scale):
 
 
 # ------------------------------------------------------------ custom ops
-@torch.library.custom_op("ray_tpu_torch::flash_attention_fwd", mutates_args=(),
-                         device_types="cpu")
-def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+# Defined through torch.library's dispatcher API, not torch.library.custom_op:
+# custom_op wraps each kernel in torch._disable_dynamo, whose first call in a
+# process imports torch._dynamo (seconds, in every fresh worker).
+_LIB = torch.library.Library("ray_tpu_torch", "FRAGMENT")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, float sm_scale)"
+            " -> (Tensor, Tensor)")
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
+            "Tensor dout, bool causal, float sm_scale) -> (Tensor, Tensor, Tensor)")
+
+
+def _fwd_cpu(q, k, v, causal, sm_scale):
     return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale)
 
 
-@_fwd_op.register_kernel("cuda")
 def _fwd_cuda(q, k, v, causal, sm_scale):
     return _launch_fwd(q, k, v, causal, sm_scale)
 
 
-@torch.library.custom_op("ray_tpu_torch::flash_attention_bwd", mutates_args=(),
-                         device_types="cpu")
-def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-            lse: torch.Tensor, dout: torch.Tensor, causal: bool,
-            sm_scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _bwd_cpu(q, k, v, out, lse, dout, causal, sm_scale):
     return flash_attention_backward_plain(q, k, v, out, lse, dout, causal=causal,
                                           sm_scale=sm_scale)
 
 
-@_bwd_op.register_kernel("cuda")
 def _bwd_cuda(q, k, v, out, lse, dout, causal, sm_scale):
     return _launch_bwd(q, k, v, out, lse, dout, causal, sm_scale)
+
+
+_LIB.impl("flash_attention_fwd", _fwd_cpu, "CPU")
+_LIB.impl("flash_attention_fwd", _fwd_cuda, "CUDA")
+_LIB.impl("flash_attention_bwd", _bwd_cpu, "CPU")
+_LIB.impl("flash_attention_bwd", _bwd_cuda, "CUDA")
+_fwd_op = torch.ops.ray_tpu_torch.flash_attention_fwd.default
+_bwd_op = torch.ops.ray_tpu_torch.flash_attention_bwd.default
 
 
 def _setup_context(ctx, inputs, output):
@@ -300,10 +309,11 @@ def _backward(ctx, dout, _dlse):
     return dq, dk, dv, None, None
 
 
-_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+torch.library.register_autograd("ray_tpu_torch::flash_attention_fwd", _backward,
+                                setup_context=_setup_context, lib=_LIB)
 
 # the op the remat policy saves (ops/remat.py)
-FLASH_FWD_OP = torch.ops.ray_tpu_torch.flash_attention_fwd.default
+FLASH_FWD_OP = _fwd_op
 
 
 def flash_attention_forward(q, k, v, *, causal: bool = True,

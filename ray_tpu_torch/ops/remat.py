@@ -21,15 +21,15 @@ from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint
 from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP
 
 
-@torch.library.custom_op("ray_tpu_torch::checkpoint_name", mutates_args=())
-def _name_op(x: torch.Tensor, name: str) -> torch.Tensor:
-    return x.clone()
+# torch.library's dispatcher API, as the flash ops (ops/flash_attention.py):
+# custom_op's kernels import torch._dynamo at their first call in a process
+_LIB = torch.library.Library("ray_tpu_torch", "FRAGMENT")
+_LIB.define("checkpoint_name(Tensor x, str name) -> Tensor")
+_LIB.impl("checkpoint_name", lambda x, name: x.clone(), "CompositeExplicitAutograd")
+torch.library.register_autograd("ray_tpu_torch::checkpoint_name", lambda ctx, grad: (grad, None),
+                                setup_context=lambda ctx, inputs, output: None, lib=_LIB)
 
-
-_name_op.register_autograd(lambda ctx, grad: (grad, None),
-                           setup_context=lambda ctx, inputs, output: None)
-
-NAME_OP = torch.ops.ray_tpu_torch.checkpoint_name.default
+NAME_OP = _name_op = torch.ops.ray_tpu_torch.checkpoint_name.default
 
 
 def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:

@@ -22,7 +22,7 @@ import ray_tpu_torch
 from ray_tpu_torch.rllib.core import Adam, RLModule, apply, mlp_init, params_to_numpy, seeded
 from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.learner import to_tensors
-from ray_tpu_torch.rllib.ppo import (TUNE_NOT_PORTED, AlgorithmConfig, make_runners,
+from ray_tpu_torch.rllib.ppo import (AlgorithmConfig, make_runners, rl_trainable,
                                      runner_metrics, spaces, stop_actors)
 from ray_tpu_torch.rllib.replay_buffer import PrioritizedReplayBuffer, ReplayBuffer
 from ray_tpu_torch.utils.device import resolve_device
@@ -244,5 +244,10 @@ class DQN:
 
     @classmethod
     def as_trainable(cls, config: "DQNConfig", stop_iters: int = 10):
-        """The Tune adapter."""
-        raise NotImplementedError(f"as_trainable {TUNE_NOT_PORTED}")
+        """The Tune adapter. DQN learns in the algorithm's own process, the
+        trial's actor, so a trial learning on the card leases one
+        (``trial_resources``); on the CPU it leases one CPU, as in JAX."""
+        trainable = rl_trainable(config, stop_iters)
+        if resolve_device(config.device).type == "cuda":
+            trainable.trial_resources = {"CPU": 1.0, "GPU": 1.0}
+        return trainable

@@ -24,10 +24,6 @@ from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.learner import Learner
 from ray_tpu_torch.utils.device import resolve_device
 
-TUNE_NOT_PORTED = ("needs Tune (the JAX package's tune/), which the port has not ported yet "
-                   "(ROADMAP.md, Queue 1)")
-
-
 class AlgorithmConfig:
     """What every algorithm's builder shares: the env, the runners, the
     device (``.resources``), and ``_set`` for the ``training`` methods."""
@@ -261,5 +257,29 @@ class PPO:
 
     @classmethod
     def as_trainable(cls, config: PPOConfig, stop_iters: int = 10):
-        """The Tune adapter (ref: Algorithm is-a Trainable)."""
-        raise NotImplementedError(f"as_trainable {TUNE_NOT_PORTED}")
+        """The Tune adapter (ref: Algorithm is-a Trainable): each trial
+        builds the algorithm from ``config`` (with the trial's ``lr``) and
+        reports ``stop_iters`` train() results. The trial's actor holds no
+        card: PPO's learners are actors leasing theirs."""
+        return rl_trainable(config, stop_iters)
+
+
+def rl_trainable(config, stop_iters: int):
+    """A trainable that builds ``config`` (its ``lr`` from the trial's
+    config) and reports ``stop_iters`` train() results, stopping the
+    algorithm's actors at the end (JAX's ``as_trainable`` body)."""
+
+    def trainable(tune_config: dict):
+        from ray_tpu_torch import tune
+
+        cfg = config
+        if "lr" in tune_config:
+            cfg = cfg.training(lr=tune_config["lr"])
+        algo = cfg.build()
+        try:
+            for _ in range(stop_iters):
+                tune.report(algo.train())
+        finally:
+            algo.stop()
+
+    return trainable

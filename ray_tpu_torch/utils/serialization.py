@@ -480,11 +480,18 @@ def _tensor(a: np.ndarray):
     return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``DTensor``, without importing
+    ``torch.distributed.tensor`` (seconds, the first time in a process): a
+    ``DTensor`` exists only once that module is loaded."""
+    module = sys.modules.get("torch.distributed.tensor")
+    return module is not None and isinstance(t, module.DTensor)
+
+
 def _tensor_to_host(t):
     import torch
-    from torch.distributed.tensor import DTensor
 
-    if isinstance(t, DTensor):
+    if is_dtensor(t):
         t = t.full_tensor()
     t = t.detach()
     if t.dtype == torch.bfloat16:

@@ -113,3 +113,28 @@ def split_linear_loop(config):
     group = collective.get_group_handle(ctx.collective_group)
     train.report({"rows": rows, "loss": float(torch.mean((x_full @ w - y_full) ** 2)),
                   "rendezvous_s": group.rendezvous_s})
+
+
+def loss_over_lr_loop(config):
+    """``tests/test_tune.py``'s Tune-over-Train loop: a loss of 100 / lr."""
+    train.report({"loss": 100.0 / config["lr"]})
+
+
+def tiny_llama_loop(config):
+    """``config["steps"]`` AdamW steps (lr ``config["lr"]``) of
+    ``LlamaConfig.tiny()`` on the CPU, weights and one batch drawn from
+    ``config["seed"]``; reports every loss, then the last as ``loss``."""
+    from ray_tpu_torch.models.llama import AdamW, LlamaConfig, llama_init, make_train_step
+
+    cfg = LlamaConfig.tiny()
+    g = torch.Generator().manual_seed(config["seed"])
+    params = llama_init(g, cfg, "cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 33), generator=g)}
+    opt = AdamW(config["lr"])
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    losses = []
+    for _ in range(config["steps"]):
+        params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+    train.report({"losses": losses, "loss": losses[-1]})

@@ -63,7 +63,11 @@ SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
                "ray_tpu_torch.serve.dataplane.autoscaler", "ray_tpu_torch.serve.streaming",
                "ray_tpu_torch.serve.streaming.slo",
                "ray_tpu_torch.dag", "ray_tpu_torch.dag.channel", "ray_tpu_torch.dag.dag_node",
-               "ray_tpu_torch.dag.compiled_dag", "ray_tpu_torch.dag.runner"]
+               "ray_tpu_torch.dag.compiled_dag", "ray_tpu_torch.dag.runner",
+               "ray_tpu_torch.tune", "ray_tpu_torch.tune.search", "ray_tpu_torch.tune.schedulers",
+               "ray_tpu_torch.tune.session", "ray_tpu_torch.tune.controller",
+               "ray_tpu_torch.air", "ray_tpu_torch.air.integrations",
+               "ray_tpu_torch.workflow", "ray_tpu_torch.workflow.api"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
@@ -170,3 +174,15 @@ def test_dag_exports_match_jax():
     node = ActorMethod(handle, "step").bind(tdag.InputNode(), 3)
     assert isinstance(node, tdag.ClassMethodNode)
     assert (node.actor_handle, node.method_name, node.args[1]) == (handle, "step", 3)
+
+
+@pytest.mark.parametrize("package", ["tune", "air", "workflow"])
+def test_tune_air_workflow_exports_match_jax(package):
+    """ray_tpu_torch.tune, .air and .workflow export exactly the names of
+    the JAX package's, in its order, and every one resolves."""
+    import importlib
+
+    ours = importlib.import_module(f"ray_tpu_torch.{package}")
+    theirs = importlib.import_module(f"ray_tpu.{package}")
+    assert ours.__all__ == theirs.__all__
+    assert all(hasattr(ours, n) for n in ours.__all__)

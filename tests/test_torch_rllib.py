@@ -553,8 +553,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_runtime_only_paths_refuse():
     """Two learners now build, as actors of the port's runtime meeting in a
-    gloo group, and train; only the Tune adapter still refuses: the port
-    has no tune/ yet."""
+    gloo group, and train; and the Tune adapters, which refused while the
+    port had no tune/, return trainables (a CPU trial leases one CPU;
+    tests/test_torch_tune.py runs them through a Tuner)."""
     import ray_tpu_torch
     from ray_tpu_torch import config
 
@@ -577,5 +578,5 @@ def test_runtime_only_paths_refuse():
             ray_tpu_torch.shutdown()
         config.set_config(runtime_cfg)
     for algo in (rllib.PPO, rllib.DQN):
-        with pytest.raises(NotImplementedError, match="tune/"):
-            algo.as_trainable(cfg)
+        trainable = algo.as_trainable(cfg)
+        assert callable(trainable) and getattr(trainable, "trial_resources", None) is None
