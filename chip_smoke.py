@@ -243,6 +243,25 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               in one process, and 0 flash launches, counted in its task
               from 0. The card's free memory before and after. The
               runtime is shut down after it.
+   job_cli — the operator's path, with no runtime of the script's own:
+              `python -m ray_tpu_torch start --head --num-cpus 8` (no
+              --num-gpus: the raylet counts the card) under a fresh TMPDIR,
+              `status` showing GPU 1/1 and accelerator_type:H100, the
+              `dashboard` command on a free port, and a job sent through
+              JobSubmissionClient over its REST API: the job's driver joins
+              through RT_ADDRESS and runs job_cli_score as a num_gpus=1
+              task (the seed-0 weights drawn in it, the 32-layer bf16
+              llama_forward of the forward phase's tokens, the last
+              position's logits back as host numpy). The job SUCCEEDED,
+              32 flash forward launches counted in the task, its logits
+              within 1e-6 relative L2 of the forward phase's, no CUDA in
+              the driver; read back through `job list`, `list actors`
+              (its supervisor), the job's logs over REST, /api/tasks,
+              /api/timeline and /metrics; a sleeping job stopped over REST
+              ends STOPPED; `stop` leaves none of the session's processes
+              and the card's free memory within 1 GiB of its reading
+              before `start`. Printed: each step's seconds, the free-memory
+              readings, the task's weight draw and first forward.
 19. rllib_parity — ray_tpu_torch.rllib on the card, float32, TF32 off: one
               update of each of PPO (minibatches 1), IMPALA, APPO, DQN, SAC,
               BC and CQL from weights drawn once and a fixed batch, against
@@ -288,6 +307,9 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               Each rllib phase reads the flash kernels' launches where its
               updates run, counted there from 0 (the driver's, and in
               rllib_ppo and rllib_learners each learner actor's): 0.
+
+The script and every process it starts share one bytecode cache under the
+git-ignored ray_tpu_torch/_build/pycache (keep_bytecode).
 
 Then the script's wall seconds, the {"kernels": [...]} line, the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -3916,6 +3938,276 @@ def phase_data_batch(card: str) -> dict:
     return dict(total)
 
 
+# ------------------------------------------------------------------ job_cli
+# The operator's path: a cluster started by `python -m ray_tpu_torch start
+# --head` (the raylet counts the card itself), the `dashboard` command, a
+# job sent through JobSubmissionClient over its REST API, read back through
+# the CLI and the dashboard, a second job stopped over REST, and `stop`.
+JOB_CLI_WAIT_S = 300  # the card job: a worker's start, a 16 GB draw, one forward
+
+JOB_CLI_DRIVER = """\
+import json, os, sys
+
+import numpy as np
+
+import chip_smoke
+import ray_tpu_torch
+
+ray_tpu_torch.init()  # joins the job's cluster through RT_ADDRESS
+score = ray_tpu_torch.remote(num_gpus=1)(chip_smoke.job_cli_score)
+out = ray_tpu_torch.get(score.remote(sys.argv[1]), timeout=600)
+logits = out.pop("logits")
+np.save(sys.argv[2], logits)
+torch = sys.modules.get("torch")
+print(json.dumps({**out, "checksum": float(logits.astype(np.float64).sum()),
+                  "driver_pid": os.getpid(), "driver_torch_imported": torch is not None,
+                  "driver_cuda_initialized": bool(torch is not None
+                                                  and torch.cuda.is_initialized()),
+                  "driver_libcuda_mapped": chip_smoke._libcuda_mapped(os.getpid())}),
+      flush=True)
+ray_tpu_torch.shutdown()
+"""
+
+
+def job_cli_score(rows_path: str) -> dict:
+    """The job's card task (it leases the whole card): the seed-0 Llama-3-8B
+    weights drawn in this task's worker and one 32-layer bf16 llama_forward
+    of the forward phase's tokens through the flash forward kernel, its
+    launches counted here from 0. Returns the last position's logits as host
+    float32 numpy, the launches, this worker's pid and card, the weight
+    draw's seconds and the forward's ms."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_forward, llama_init
+
+    _no_tf32()
+    tokens = torch.from_numpy(np.load(rows_path)[:, :-1].copy())
+    cfg = LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params = llama_init(torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kernels.LAUNCHES.clear()
+    with torch.inference_mode():
+        (logits, _), ms = timed(lambda: llama_forward(params, tokens.cuda(), cfg,
+                                                      attn_impl="auto"))
+        last = logits[:, -1].float().cpu().numpy()
+    return {"logits": last, "launches": dict(kernels.launches()), "task_pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"), "init_s": init_s,
+            "forward_ms": ms, "foreign": _foreign_modules()}
+
+
+def _free_card_bytes() -> int:
+    import torch
+
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def _libcuda_mapped(pid: int) -> bool:
+    """Whether the CUDA driver library is mapped into process ``pid``."""
+    with open(f"/proc/{pid}/maps") as f:
+        return "libcuda.so" in f.read()
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+        return True
+    except ProcessLookupError:
+        return False
+
+
+def phase_job_cli(card: str, forward_rows, forward_last) -> dict:
+    """The operator's path on the card, with no runtime of the script's own:
+    `start --head` (no --num-gpus) under a fresh TMPDIR, `status` showing
+    GPU 1/1 and accelerator_type:H100, the `dashboard` command, a job through
+    JobSubmissionClient whose driver runs job_cli_score as a num_gpus=1
+    task, read back through REST, `job list`, `list actors`, the job's logs,
+    /api/tasks, /api/timeline and /metrics; a sleeping job stopped over
+    REST; `stop`. The job SUCCEEDED with 32 forward launches in its task,
+    logits within 1e-6 relative L2 of the forward phase's last position
+    (``forward_last``, host float32), no CUDA in the driver, the second job
+    STOPPED, the session's processes gone and the card's free memory back
+    within 1 GiB. Returns the task's launches."""
+    import shutil
+    import socket
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.job import JobSubmissionClient
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    secs, free = {}, {}
+    tmp = tempfile.mkdtemp(prefix="rtt_job_cli_")
+    env = {k: v for k, v in os.environ.items() if k not in ("RT_ADDRESS", "PYTHONPATH")}
+    env.update(TMPDIR=tmp, PYTHONPATH=here)
+
+    def cli(*args, timeout=120, check=True):
+        out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args], cwd=here, env=env,
+                             capture_output=True, text=True, timeout=timeout)
+        if check and out.returncode != 0:
+            raise AssertionError(f"`{' '.join(args)}` exited {out.returncode}: {out.stderr}")
+        return out.stdout
+
+    def until(what, fn, timeout):
+        deadline = time.monotonic() + timeout
+        while True:
+            v = fn()
+            if v:
+                return v
+            if time.monotonic() > deadline:
+                raise AssertionError(f"job_cli: {what} after {timeout} s")
+            time.sleep(0.1)
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as r:
+            return r.read()
+
+    def step(name, t0):
+        secs[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    rows_path, logits_path = os.path.join(tmp, "tokens.npy"), os.path.join(tmp, "logits.npy")
+    np.save(rows_path, forward_rows)
+    driver = os.path.join(tmp, "driver.py")
+    with open(driver, "w") as f:
+        f.write(JOB_CLI_DRIVER)
+    free["before_start"] = _free_card_bytes()
+    dash, pids = None, []
+    t = t_phase = time.perf_counter()
+    try:
+        out = cli("start", "--head", "--num-cpus", "8")
+        address = [ln for ln in out.splitlines() if "started at" in ln][0].split()[-1]
+        with open(os.path.join(tmp, "ray_tpu_torch", "session.json")) as f:
+            pids = json.load(f)["pids"]
+        t = step("start", t)
+        # `status` waits up to 30 s for a raylet to register (the raylet
+        # imports torch to count the cards first); past that it fails and
+        # is asked again
+        status = until("status never showed the node", lambda: (
+            lambda s: s if "nodes: 1" in s else None)(
+            cli("status", "--address", address, check=False)), 120)
+        t = step("status", t)
+        free["node_registered"] = _free_card_bytes()
+        libcuda = {pid: _libcuda_mapped(pid) for pid in pids}  # the GCS's and the raylet's
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        base = f"http://127.0.0.1:{port}"
+        dash_log = open(os.path.join(tmp, "dashboard.log"), "wb")
+        dash = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", "dashboard", "--address",
+                                 address, "--port", str(port)], cwd=here, env=env,
+                                stdout=dash_log, stderr=subprocess.STDOUT)
+
+        def page():
+            if dash.poll() is not None:
+                raise AssertionError(f"the dashboard exited {dash.returncode}")
+            try:
+                return get("/")
+            except OSError:
+                return None
+
+        until("the dashboard never answered", page, 60)
+        t = step("dashboard", t)
+        client = JobSubmissionClient(base)
+        jid = client.submit_job(entrypoint=f"{sys.executable} {driver} {rows_path} {logits_path}")
+        info = until("the card job never ended", lambda: (lambda i: i if i["status"] in (
+            "SUCCEEDED", "FAILED", "STOPPED") else None)(client.get_job_info(jid)),
+            JOB_CLI_WAIT_S)
+        t = step("card_job", t)
+        logs = client.get_job_logs(jid)
+        if info["status"] != "SUCCEEDED":
+            raise AssertionError(f"the card job ended {info}: {logs[-3000:]}")
+        line = [ln for ln in logs.splitlines() if ln.startswith("{")][-1]
+        job = json.loads(line)
+        rest_logs = json.loads(get(f"/api/jobs/{jid}/logs"))["logs"]
+        listed = json.loads(cli("job", "list", "--address", address))
+        actors = json.loads(cli("list", "actors", "--address", address))
+        tasks = until("/api/tasks never showed the card task FINISHED", lambda: [
+            r for r in json.loads(get("/api/tasks"))
+            if r.get("name") == "job_cli_score" and r.get("state") == "FINISHED"], 30)
+        events = until("/api/timeline has no card task", lambda: [
+            e for e in json.loads(get("/api/timeline")) if e.get("name") == "job_cli_score"], 30)
+        prom = get("/metrics").decode()
+        t = step("read_back", t)
+        free["after_job"] = _free_card_bytes()
+        sleeper = client.submit_job(entrypoint=f"{sys.executable} -c 'import time; "
+                                               "time.sleep(600)'")
+        until("the sleeping job never ran", lambda: client.get_job_status(sleeper) == "RUNNING",
+              60)
+        req = urllib.request.Request(f"{base}/api/jobs/{sleeper}/stop", method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            stop_reply = json.loads(r.read())
+        sleeper_status = until("the stopped job never ended", lambda: (
+            lambda s: s if s in ("SUCCEEDED", "FAILED", "STOPPED") else None)(
+            client.get_job_status(sleeper)), 60)
+        t = step("stopped_job", t)
+    finally:
+        if dash is not None:
+            dash.terminate()
+            dash.wait(timeout=30)
+        cli("stop")
+        deadline = time.monotonic() + 30
+        while any(_pid_alive(p) for p in pids) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        gone = not any(_pid_alive(p) for p in pids)
+    t = step("stop", t)
+    # the card task's worker ends with its raylet: wait for its memory
+    deadline = time.monotonic() + 60
+    while _free_card_bytes() < free["before_start"] - (1 << 30) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    free["after_stop"] = _free_card_bytes()
+    secs["memory_back"] = time.perf_counter() - t
+    secs["phase"] = time.perf_counter() - t_phase
+    rel = rel_l2(torch.from_numpy(np.load(logits_path)), torch.from_numpy(forward_last))
+    shutil.rmtree(tmp, ignore_errors=True)  # the cluster's session, logs and the job's files
+    launches = job["launches"]
+    gpu_line = [ln.strip() for ln in status.splitlines() if ln.strip().startswith("GPU:")]
+    marker = [ln.strip() for ln in status.splitlines() if "accelerator_type:" in ln]
+    emit({"phase": "job_cli", "address": address, "status_gpu": gpu_line,
+          "status_accelerator": marker, "job_id": jid, "job_status": info["status"],
+          "task_launches": launches, "logits_rel_l2_vs_forward": rel, "tol": 1e-6,
+          "bitwise": rel == 0.0, "checksum": job["checksum"], "task_pid": job["task_pid"],
+          "task_visible": job["visible"], "task_foreign": job["foreign"],
+          "driver_pid": job["driver_pid"], "driver_torch_imported": job["driver_torch_imported"],
+          "driver_cuda_initialized": job["driver_cuda_initialized"],
+          "driver_libcuda_mapped": job["driver_libcuda_mapped"],
+          "task_init_s": job["init_s"], "task_forward_ms": job["forward_ms"],
+          "rest_logs_have_line": line in rest_logs,
+          "job_listed": any(r["job_id"] == jid for r in listed),
+          "supervisor_listed": any(a.get("name") == f"_job_supervisor_{jid}" for a in actors),
+          "task_rows": len(tasks), "timeline_events": len(events),
+          "prometheus_type_line": "# TYPE rt_tasks_submitted counter" in prom,
+          "stop_reply": stop_reply, "stopped_job_status": sleeper_status,
+          "session_pids": pids, "session_pids_gone": gone, "daemons_libcuda_mapped": libcuda,
+          "free_bytes": free,
+          "seconds": secs, "card": card})
+    if launches.get("flash_attention_fwd") != 32 or sum(launches.values()) != 32:
+        raise AssertionError(f"the card task's flash launches {launches}, want 32 forward")
+    if not rel <= 1e-6:
+        raise AssertionError(f"the card task's logits: rel L2 {rel} against the forward phase's")
+    if job["driver_cuda_initialized"] or job["visible"] != "0" or job["foreign"]:
+        raise AssertionError(f"the job's driver started CUDA, or its task saw "
+                             f"{job['visible']!r} and loaded {job['foreign']}")
+    if gpu_line != ["GPU: 1/1"] or not any(m.startswith("accelerator_type:H100") for m in marker):
+        raise AssertionError(f"status showed {gpu_line} {marker}")
+    if not (line in rest_logs and any(r["job_id"] == jid for r in listed)
+            and any(a.get("name") == f"_job_supervisor_{jid}" for a in actors)
+            and "# TYPE rt_tasks_submitted counter" in prom):
+        raise AssertionError("the job was not read back through every way in")
+    if stop_reply != {"stopped": True} or sleeper_status != "STOPPED":
+        raise AssertionError(f"the second job: {stop_reply}, {sleeper_status}")
+    if not gone or free["after_stop"] < free["before_start"] - (1 << 30):
+        raise AssertionError(f"after stop: processes gone {gone}, free bytes {free}")
+    return launches
+
+
 # --------------------------------------------------------------------- rllib
 # ray_tpu_torch.rllib in process on the card: float32, TF32 off, no flash
 # kernel on the path (small MLPs; the launches are read to be 0).
@@ -4650,17 +4942,35 @@ def phase_rllib_learners(card: str) -> dict:
     return dict(flash)
 
 
+def keep_bytecode(here: str) -> str:
+    """Give this process and every process it starts (the runtime's
+    workers, the CLI's daemons, jobs' drivers) one bytecode cache under the
+    git-ignored ``ray_tpu_torch/_build/pycache``. The card's host sets
+    PYTHONDONTWRITEBYTECODE=1 and its torch carries no ``__pycache__``, so
+    without a cache every fresh process compiles torch's Python sources at
+    ``import torch``; with it, only the first does (chip_import_probe.py
+    times both)."""
+    prefix = os.path.join(here, "ray_tpu_torch", "_build", "pycache")
+    os.makedirs(prefix, exist_ok=True)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+    return prefix
+
+
 def main() -> int:
     started = time.perf_counter()
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "ray_tpu_torch")):
         print("chip_smoke: the ray_tpu_torch package is not beside this script",
               file=sys.stderr)
+        return 2
+    keep_bytecode(here)  # before the first import of torch
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, here)
     from ray_tpu_torch import kernels
@@ -4722,7 +5032,7 @@ def main() -> int:
     data_trainer_launches = phase_data_trainer(card, train_losses, train_tokens)
     tune_trainer_launches = phase_tune_trainer(card, train_losses)
     workflow_launches = phase_workflow(card, forward_rows, forward_last)
-    del forward_last
+    forward_last = forward_last.cpu().numpy()  # ~1 MB on the host, for job_cli
     # after every phase that needs the card: its workers lease the card
     data_batch_launches = phase_data_batch(card)
     import ray_tpu_torch
@@ -4730,6 +5040,8 @@ def main() -> int:
     ray_tpu_torch.shutdown()  # every worker and the shm arena go with it
     gc.collect()
     torch.cuda.empty_cache()
+    # a cluster of its own, started and stopped through the CLI
+    job_cli_launches = phase_job_cli(card, forward_rows, forward_last)
     phase_rllib_parity(card)
     # the RL drivers' runner actors, PPO's learner actors and the offline
     # shard tasks run on a runtime of their own
@@ -4779,6 +5091,8 @@ def main() -> int:
                "tune_rllib_launches": tune_rllib_launches.get(name, 0),
                # the workflow's score step, counted in its task
                "workflow_launches": workflow_launches.get(name, 0),
+               # the job_cli job's card task, counted in it
+               "job_cli_launches": job_cli_launches.get(name, 0),
                # both stages' launches over dag_pipeline's timed overlap executes
                "dag_pipeline_launches": sum(dag_launches.values())
                if name == "flash_attention_fwd" else 0,

@@ -6,9 +6,14 @@ nothing of ``ray_tpu``) and mirrors its layout: the task/actor runtime
 ``devtools.chaos``), ``sharded``, ``ops``, ``models``, ``llm``, ``serve``,
 ``data``, ``dag``, ``parallel``, ``collective``, ``train``, ``tune``
 (with ``air``'s logger callbacks), ``workflow``, ``rllib``,
-``accelerators`` and ``utils``. Every Pallas TPU kernel on a ported path
-becomes a kernel written by hand for Hopper (``csrc/``, built by
-``kernels``). Entry points run on the CUDA card unless the caller passes
+``accelerators`` and ``utils``, and the operator's surface: ``state`` (the
+state API and timeline), ``job`` (job submission), ``dashboard`` (its
+JSON API and ``dashboard_client/`` SPA on the standard library's HTTP
+server), ``client`` (remote drivers) and the command line
+(``python -m ray_tpu_torch start|stop|status|list|summary|timeline|
+dashboard|job|serve|chaos``, ``scripts.py``). Every Pallas TPU kernel on
+a ported path becomes a kernel written by hand for Hopper (``csrc/``,
+built by ``kernels``). Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; the runtime's ``num_gpus`` leases whole cards through
 ``CUDA_VISIBLE_DEVICES``.
 

@@ -167,7 +167,7 @@ def _start_head_processes(resources, labels=None) -> tuple[tuple[str, int], tupl
         "--gcs", f"{host}:{port}",
         "--num-cpus", str(resources.get("CPU", os.cpu_count() or 1)),
     ]
-    if resources.get(_GPU):
+    if _GPU in resources:  # an explicit 0 too: the raylet counts cards only unasked
         cmd += ["--num-gpus", str(resources[_GPU])]
     if res_arg:
         cmd += ["--resources", res_arg]

@@ -2411,7 +2411,8 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--gcs", required=True, help="host:port of the GCS")
     parser.add_argument("--num-cpus", type=float, default=float(os.cpu_count() or 1))
-    parser.add_argument("--num-gpus", type=float, default=0.0)
+    parser.add_argument("--num-gpus", type=float, default=None,
+                        help="cards to offer (default: count this host's)")
     parser.add_argument("--resources", default="", help="k=v,k=v extra resources")
     parser.add_argument("--labels", default="", help="k=v,k=v node labels")
     parser.add_argument("--store-capacity", type=int, default=0)
@@ -2421,8 +2422,9 @@ def main():
     host, port = args.gcs.rsplit(":", 1)
     resources = {"CPU": args.num_cpus}
     labels: dict[str, str] = {}
-    if args.num_gpus:
-        resources[_GPU] = args.num_gpus
+    if args.num_gpus is not None:
+        if args.num_gpus:
+            resources[_GPU] = args.num_gpus
     else:
         for k, v in GPUAcceleratorManager.get_current_node_resources().items():
             resources.setdefault(k, v)

@@ -93,11 +93,11 @@ def pipelines(data):
     }
 
 
-def run_once(tmp_path_factory, script: str, timeout: float):
-    """The JSON that ``tests/<script> <out.json>`` writes, from one run per
-    test session: xdist workers share it through a lock in the session's
-    temp directory, so each JAX runtime starts once. Fails the caller with
-    the script's output if it failed."""
+def run_once(tmp_path_factory, script: str, timeout: float, args: tuple = ()):
+    """The JSON that ``tests/<script> <out.json> [args]`` writes, from one
+    run per test session and ``args``: xdist workers share it through a
+    lock in the session's temp directory, so each JAX runtime starts once.
+    Fails the caller with the script's output if it failed."""
     import fcntl
     import subprocess
 
@@ -106,7 +106,7 @@ def run_once(tmp_path_factory, script: str, timeout: float):
     base = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):  # the session's dir, shared by the workers
         base = base.parent
-    work = base / f"jax_{os.path.splitext(script)[0].strip('_')}"
+    work = base / "_".join(["jax", os.path.splitext(script)[0].strip("_"), *args])
     work.mkdir(exist_ok=True)
     with open(work / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -116,7 +116,7 @@ def run_once(tmp_path_factory, script: str, timeout: float):
                        PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, "tests")]))
             try:
                 proc = subprocess.run([sys.executable, os.path.join(ROOT, "tests", script),
-                                       str(work / "out.json")], cwd=ROOT, env=env,
+                                       str(work / "out.json"), *args], cwd=ROOT, env=env,
                                       capture_output=True, text=True, timeout=timeout)
                 report = {"ok": proc.returncode == 0,
                           "log": proc.stdout[-3000:] + proc.stderr[-3000:]}

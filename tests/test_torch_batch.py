@@ -18,7 +18,7 @@ import torch
 
 import _torch_batch_jax
 import _torch_data_jax
-from _torch_time_limit import time_limits
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
 from ray_tpu.data.block import BlockAccessor as JBlockAccessor
 from ray_tpu.llm import generate as jgenerate
 from ray_tpu.models import llama as jllama

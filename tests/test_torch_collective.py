@@ -23,7 +23,7 @@ import time
 import numpy as np
 import pytest
 
-from _torch_time_limit import time_limits
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HELPER = os.path.join(ROOT, "tests", "_torch_collective_rank.py")

@@ -28,7 +28,7 @@ import pytest
 import ray_tpu_torch
 from ray_tpu_torch.dag import InputNode, MultiOutputNode, allreduce_bind
 
-from _torch_time_limit import time_limits
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
 
 # a worker starts in ~2 s; the collective and cross-node cases ~20 s each
 _module_limit, _test_limit = time_limits(module_s=240, test_s=120)

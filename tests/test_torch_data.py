@@ -33,7 +33,7 @@ import ray_tpu_torch.data as rtd
 import ray_tpu_torch.data.dataset as tds
 import ray_tpu_torch.data.executor as tex
 import ray_tpu_torch.data.optimizer as topt
-from _torch_time_limit import time_limits
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX rows' subprocess ~30 s alone, the trainer case ~15 s

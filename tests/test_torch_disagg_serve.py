@@ -40,7 +40,7 @@ import pytest
 import torch
 
 import ray_tpu_torch
-from _torch_time_limit import time_limits
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
 from ray_tpu.llm import ContinuousBatchingEngine as JEngine
 from ray_tpu.llm.disagg import kv_plane as jkv
 from ray_tpu.llm.disagg import prefix_cache as jpc

@@ -67,7 +67,14 @@ SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
                "ray_tpu_torch.tune", "ray_tpu_torch.tune.search", "ray_tpu_torch.tune.schedulers",
                "ray_tpu_torch.tune.session", "ray_tpu_torch.tune.controller",
                "ray_tpu_torch.air", "ray_tpu_torch.air.integrations",
-               "ray_tpu_torch.workflow", "ray_tpu_torch.workflow.api"]
+               "ray_tpu_torch.workflow", "ray_tpu_torch.workflow.api",
+               "ray_tpu_torch.state", "ray_tpu_torch.job", "ray_tpu_torch.dashboard",
+               "ray_tpu_torch.scripts", "ray_tpu_torch.client", "ray_tpu_torch.util.metrics",
+               "ray_tpu_torch.devtools.chaos.cli"]
+# the operator's surface: it serves from the card's host, which has no aiohttp
+OPERATOR = ["ray_tpu_torch.state", "ray_tpu_torch.job", "ray_tpu_torch.dashboard",
+            "ray_tpu_torch.scripts", "ray_tpu_torch.__main__", "ray_tpu_torch.client",
+            "ray_tpu_torch.util.metrics", "ray_tpu_torch.devtools.chaos.cli"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
@@ -75,7 +82,7 @@ def test_import_leaves_jax_and_ray_tpu_out():
         "import sys\n"
         + "".join(f"import {m}\n" for m in SUBPACKAGES)
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-          "('jax', 'jaxlib', 'ray_tpu'))\n"
+          "('jax', 'jaxlib', 'ray_tpu', 'aiohttp'))\n"
           "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
@@ -186,3 +193,45 @@ def test_tune_air_workflow_exports_match_jax(package):
     theirs = importlib.import_module(f"ray_tpu.{package}")
     assert ours.__all__ == theirs.__all__
     assert all(hasattr(ours, n) for n in ours.__all__)
+
+
+def test_operator_modules_import_no_aiohttp():
+    """The dashboard, the job path and the CLI import no aiohttp, anywhere
+    in their source (not even inside a function, as serve's proxy does)."""
+    found = []
+    for mod in OPERATOR:
+        path = os.path.join(ROOT, *mod.split(".")) + ".py"
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{mod}:{node.lineno} {n}" for n in names if n.split(".")[0] == "aiohttp"]
+    assert not found, found
+
+
+def _exports(mod) -> set:
+    """A module's public names: its __all__, else what it defines itself
+    (functions, classes, constants; not the modules and names it imports)."""
+    import inspect
+
+    if hasattr(mod, "__all__"):
+        return set(mod.__all__)
+    return {n for n, v in vars(mod).items() if not n.startswith("_")
+            and not inspect.ismodule(v) and getattr(v, "__module__", mod.__name__) == mod.__name__}
+
+
+@pytest.mark.parametrize("name", ["state", "job", "dashboard", "client", "util.metrics"])
+def test_operator_exports_match_jax(name):
+    """state, job, dashboard, client and util.metrics export exactly the JAX
+    package's names, and every one resolves."""
+    import importlib
+
+    ours = importlib.import_module(f"ray_tpu_torch.{name}")
+    theirs = importlib.import_module(f"ray_tpu.{name}")
+    assert _exports(ours) == _exports(theirs)
+    assert all(hasattr(ours, n) for n in _exports(theirs))

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_time_limit import time_limits
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
 from ray_tpu_torch import _native
 from ray_tpu_torch.core.object_store import (
     ObjectStoreError,

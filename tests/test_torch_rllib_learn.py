@@ -23,7 +23,7 @@ import ray_tpu_torch
 from ray_tpu_torch import rllib
 from ray_tpu_torch.rllib import core
 
-from _torch_time_limit import time_limits
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
 
 # the learning cases take 10-40 s each under load, the runtime's start ~3 s
 _module_limit, _test_limit = time_limits(module_s=300, test_s=180)

@@ -29,7 +29,7 @@ import pytest
 import torch
 
 import ray_tpu_torch
-from _torch_time_limit import time_limits
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
 from ray_tpu_torch import config, serve
 
 # slowest case ~7 s alone (test_llm_deployment_greedy_matches_jax, a replica's

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 import ray_tpu_torch
-from _torch_time_limit import time_limits
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
 from ray_tpu.sharded import manifest as jax_manifest
 from ray_tpu_torch import config
 from ray_tpu_torch.parallel.mesh import MeshSpec

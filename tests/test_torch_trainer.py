@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 
 import _torch_train_loops as loops
-from _torch_time_limit import time_limits
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
 from ray_tpu_torch.train import (
     CheckpointConfig,
     FailureConfig,

@@ -41,7 +41,7 @@ import _torch_tune_jax
 import ray_tpu.tune.schedulers as jsched
 import ray_tpu.tune.search as jsearch
 import ray_tpu_torch
-from _torch_time_limit import time_limits
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
 from ray_tpu_torch import tune
 from ray_tpu_torch.air import LoggerCallback
 from ray_tpu_torch.tune import schedulers as tsched

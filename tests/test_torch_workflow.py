@@ -29,7 +29,7 @@ import torch
 
 import ray_tpu.workflow as jwf
 import ray_tpu_torch
-from _torch_time_limit import time_limits
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
 from ray_tpu_torch import workflow
 from ray_tpu_torch.utils import serialization
 from ray_tpu_torch.workflow import api as wf_api
