@@ -262,6 +262,34 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               and the card's free memory within 1 GiB of its reading
               before `start`. Printed: each step's seconds, the free-memory
               readings, the task's weight draw and first forward.
+   autoscale — a GPU cluster that grows on demand, with no runtime of the
+              script's own: `python -m ray_tpu_torch start --head
+              --num-cpus 4 --num-gpus 0 --autoscale 1:2` under a fresh
+              TMPDIR (`status`: one node, no GPU); this process joins with
+              init(address=...) and submits job_cli_score as a num_gpus=1
+              task, which the head parks as queued demand; the autoscaler's
+              monitor starts a local raylet that counts the card through
+              NVML (GPU 1, accelerator_type:H100), the parked lease moves
+              there and the task runs there (its node id and pid returned).
+              After the result this process shuts its runtime down, and
+              the idle node must be scaled down within 90 s; then `stop`.
+              32 flash forward launches counted in the task, its logits
+              within 1e-6 relative L2 of the forward phase's, no process of
+              the cluster left (the session's, the monitor's raylet, the
+              task's worker), the card's free memory after the scale-down
+              and after `stop` within 1 GiB of its reading before `start`.
+              Printed: demand to node registered, to the task's start,
+              weight draw, first forward, result to node gone, `stop`.
+   chaos_worker — ray_tpu_torch.init(num_cpus=2), no worker started, one
+              num_gpus=1, max_retries=1 task (chaos_card_task) that starts
+              CUDA and waits; ProcessKiller(_owned_cluster, seed=0,
+              target="worker", max_kills=1).strike_once() with the chaos
+              controller armed must strike that worker (the only READY
+              one), the card's free memory once it exited must be within
+              1 GiB of the reading before the task, and the retry, released
+              then, must return from a new pid with 32 forward launches and
+              logits within 1e-6 relative L2 of the forward phase's;
+              killer.kills and state.list_chaos_events() hold the strike.
 19. rllib_parity — ray_tpu_torch.rllib on the card, float32, TF32 off: one
               update of each of PPO (minibatches 1), IMPALA, APPO, DQN, SAC,
               BC and CQL from weights drawn once and a fixed batch, against
@@ -3974,8 +4002,10 @@ def job_cli_score(rows_path: str) -> dict:
     weights drawn in this task's worker and one 32-layer bf16 llama_forward
     of the forward phase's tokens through the flash forward kernel, its
     launches counted here from 0. Returns the last position's logits as host
-    float32 numpy, the launches, this worker's pid and card, the weight
-    draw's seconds and the forward's ms."""
+    float32 numpy, the launches, this worker's pid, node and card, the
+    task's start (host clock), the weight draw's seconds and the forward's
+    ms."""
+    started_at = time.time()
     import numpy as np
     import torch
 
@@ -3995,6 +4025,7 @@ def job_cli_score(rows_path: str) -> dict:
                                                       attn_impl="auto"))
         last = logits[:, -1].float().cpu().numpy()
     return {"logits": last, "launches": dict(kernels.launches()), "task_pid": os.getpid(),
+            "node_id": os.environ.get("RT_NODE_ID"), "started_at": started_at,
             "visible": os.environ.get("CUDA_VISIBLE_DEVICES"), "init_s": init_s,
             "forward_ms": ms, "foreign": _foreign_modules()}
 
@@ -4006,10 +4037,11 @@ def _free_card_bytes() -> int:
     return torch.cuda.mem_get_info()[0]
 
 
-def _libcuda_mapped(pid: int) -> bool:
-    """Whether the CUDA driver library is mapped into process ``pid``."""
+def _libcuda_mapped(pid: int, lib: str = "libcuda.so") -> bool:
+    """Whether the CUDA driver library (or ``lib``) is mapped into process
+    ``pid``."""
     with open(f"/proc/{pid}/maps") as f:
-        return "libcuda.so" in f.read()
+        return lib in f.read()
 
 
 def _pid_alive(pid: int) -> bool:
@@ -4096,6 +4128,7 @@ def phase_job_cli(card: str, forward_rows, forward_last) -> dict:
         t = step("status", t)
         free["node_registered"] = _free_card_bytes()
         libcuda = {pid: _libcuda_mapped(pid) for pid in pids}  # the GCS's and the raylet's
+        libtorch = {pid: _libcuda_mapped(pid, "libtorch") for pid in pids}  # NVML, no torch
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
@@ -4186,6 +4219,7 @@ def phase_job_cli(card: str, forward_rows, forward_last) -> dict:
           "prometheus_type_line": "# TYPE rt_tasks_submitted counter" in prom,
           "stop_reply": stop_reply, "stopped_job_status": sleeper_status,
           "session_pids": pids, "session_pids_gone": gone, "daemons_libcuda_mapped": libcuda,
+          "daemons_libtorch_mapped": libtorch,
           "free_bytes": free,
           "seconds": secs, "card": card})
     if launches.get("flash_attention_fwd") != 32 or sum(launches.values()) != 32:
@@ -4205,6 +4239,300 @@ def phase_job_cli(card: str, forward_rows, forward_last) -> dict:
         raise AssertionError(f"the second job: {stop_reply}, {sleeper_status}")
     if not gone or free["after_stop"] < free["before_start"] - (1 << 30):
         raise AssertionError(f"after stop: processes gone {gone}, free bytes {free}")
+    return launches
+
+
+# ---------------------------------------------------------------- autoscale
+# An operator's GPU cluster that grows on demand: a head started with no card
+# (`start --head --num-gpus 0 --autoscale 1:2`), a num_gpus=1 task queued
+# there, the autoscaler's local raylet (which counts the card) taking it, and
+# the idle node scaled back down before `stop`.
+AUTOSCALE_UP_S = 120  # demand to a second node registered: the upscale delay, a raylet's start
+AUTOSCALE_DOWN_S = 90  # the result to the node gone: the idle timeout (10 s) and a poll
+
+
+def _alive_nodes(rt) -> list:
+    return [n for n in rt.nodes() if n["alive"]]
+
+
+def phase_autoscale(card: str, forward_rows, forward_last) -> dict:
+    """`python -m ray_tpu_torch start --head --num-cpus 4 --num-gpus 0
+    --autoscale 1:2` under a fresh TMPDIR (`status` shows one node and no
+    GPU); this process joins with init(address=...) and submits
+    job_cli_score as a num_gpus=1 task, which the head parks as queued
+    demand; the autoscaler's monitor starts a local raylet that counts the
+    card (GPU 1, accelerator_type:H100), the parked lease moves there and
+    the task runs the 32-layer forward. After the result this process
+    shuts its runtime down (its lease goes at once) and, from a fresh
+    init, waits for the idle node to be scaled down; then `stop`. Fails
+    unless the task ran on the autoscaled node with 32 forward launches,
+    its logits are within 1e-6 relative L2 of ``forward_last``, the node
+    was gone within AUTOSCALE_DOWN_S, no process of the cluster is left
+    (the session's, the monitor's raylet, the task's worker) and the card's
+    free memory after the scale-down and after `stop` is within 1 GiB of
+    its reading before `start`. Returns the task's launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import chip_smoke  # by reference: the task workers import it from the cluster's PYTHONPATH
+    import ray_tpu_torch as rt
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    secs, free = {}, {}
+    tmp = tempfile.mkdtemp(prefix="rtt_autoscale_")
+    env = {k: v for k, v in os.environ.items() if k not in ("RT_ADDRESS", "PYTHONPATH")}
+    env.update(TMPDIR=tmp, PYTHONPATH=here)
+
+    def cli(*args, timeout=120):
+        out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args], cwd=here, env=env,
+                             capture_output=True, text=True, timeout=timeout)
+        if out.returncode != 0:
+            raise AssertionError(f"`{' '.join(args)}` exited {out.returncode}: {out.stderr}")
+        return out.stdout
+
+    def until(what, fn, timeout):
+        deadline = time.monotonic() + timeout
+        while True:
+            v = fn()
+            if v:
+                return v
+            if time.monotonic() > deadline:
+                raise AssertionError(f"autoscale: {what} after {timeout} s")
+            time.sleep(0.1)
+
+    rows_path = os.path.join(tmp, "tokens.npy")
+    np.save(rows_path, forward_rows)
+    free["before_start"] = _free_card_bytes()
+    pids, scaled, joined = [], None, False
+    t = t_phase = time.perf_counter()
+    try:
+        out = cli("start", "--head", "--num-cpus", "4", "--num-gpus", "0", "--autoscale", "1:2")
+        line = [ln for ln in out.splitlines() if "started at" in ln][0]
+        address = line.split(" at ")[1].split(",")[0]
+        with open(os.path.join(tmp, "ray_tpu_torch", "session.json")) as f:
+            pids = json.load(f)["pids"]  # the GCS, the head's raylet, the monitor
+        status = until("status never showed the head", lambda: (
+            lambda st: st if "nodes: 1" in st else None)(cli("status", "--address", address)), 60)
+        secs["start_status"] = time.perf_counter() - t
+        head_gpu = [ln.strip() for ln in status.splitlines() if ln.strip().startswith("GPU:")]
+        rt.init(address=address)
+        joined = True
+        score = rt.remote(num_gpus=1)(chip_smoke.job_cli_score)
+        t_demand, wall_demand = time.perf_counter(), time.time()
+        ref = score.remote(rows_path)
+        node = until("no card node came up", lambda: ([
+            n for n in _alive_nodes(rt) if n["resources_total"].get("GPU") == 1.0] or [None])[0],
+            AUTOSCALE_UP_S)
+        secs["demand_to_node_registered"] = time.perf_counter() - t_demand
+        scaled = {"node": node["node_id"].hex(), "pid": int(node["pid"]),
+                  "resources": dict(node["resources_total"])}
+        # it counted the card through NVML: no torch in the raylet
+        scaled["libtorch_mapped"] = _libcuda_mapped(scaled["pid"], "libtorch")
+        res = rt.get(ref, timeout=600)
+        t = time.perf_counter()
+        secs["demand_to_result"] = t - t_demand
+        secs["demand_to_task_start"] = res["started_at"] - wall_demand
+        rt.shutdown()  # the head reaps this process's lease now, not after its idle timeout
+        joined = False
+        rt.init(address=address)
+        joined = True
+        until("the idle card node was never scaled down", lambda: len(_alive_nodes(rt)) == 1,
+              AUTOSCALE_DOWN_S)
+        secs["result_to_node_gone"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rt.shutdown()
+        joined = False
+        deadline = time.monotonic() + 15  # every byte back, or the reading as it stands
+        while _free_card_bytes() < free["before_start"] and time.monotonic() < deadline:
+            time.sleep(0.1)
+        free["after_scale_down"] = _free_card_bytes()
+        secs["node_gone_to_memory_back"] = time.perf_counter() - t
+        if free["after_scale_down"] < free["before_start"]:
+            # which processes hold the card's memory then (information)
+            apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                                   "--format=csv,noheader"], capture_output=True, text=True)
+            free["holders_after_scale_down"] = apps.stdout.strip() or apps.stderr.strip()
+    finally:
+        if joined:
+            rt.shutdown()
+        t = time.perf_counter()
+        cli("stop")
+        watched = pids + ([scaled["pid"]] if scaled else [])
+        deadline = time.monotonic() + 30
+        while any(_pid_alive(p) for p in watched) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        left = [p for p in watched if _pid_alive(p)]
+        secs["stop"] = time.perf_counter() - t
+    deadline = time.monotonic() + 30
+    while _free_card_bytes() < free["before_start"] - (1 << 30) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    free["after_stop"] = _free_card_bytes()
+    secs["task_init_s"] = res["init_s"]
+    secs["task_forward_ms"] = res["forward_ms"]
+    secs["phase"] = time.perf_counter() - t_phase
+    task_left = _pid_alive(res["task_pid"])
+    rel = rel_l2(torch.from_numpy(res["logits"]), torch.from_numpy(forward_last))
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches = res["launches"]
+    emit({"phase": "autoscale", "address": address, "head_status_gpu": head_gpu,
+          "autoscaled_node": scaled, "task_node": res["node_id"], "task_pid": res["task_pid"],
+          "task_visible": res["visible"], "task_foreign": res["foreign"],
+          "task_launches": launches, "logits_rel_l2_vs_forward": rel, "tol": 1e-6,
+          "bitwise": rel == 0.0, "session_pids": pids, "processes_left": left,
+          "task_worker_left": task_left, "free_bytes": free, "seconds": secs, "card": card})
+    if head_gpu:
+        raise AssertionError(f"the head offered a card: {head_gpu}")
+    if res["node_id"] != scaled["node"] or scaled["pid"] in pids:
+        raise AssertionError(f"the task ran on {res['node_id']}, the autoscaled node is {scaled}")
+    if (not any(k.startswith("accelerator_type:H100") for k in scaled["resources"])
+            or scaled["libtorch_mapped"]):
+        raise AssertionError(f"the autoscaled raylet: {scaled} (it must count the card "
+                             "through NVML, without torch)")
+    if launches.get("flash_attention_fwd") != 32 or sum(launches.values()) != 32:
+        raise AssertionError(f"the card task's flash launches {launches}, want 32 forward")
+    if not rel <= 1e-6:
+        raise AssertionError(f"the card task's logits: rel L2 {rel} against the forward phase's")
+    if left or task_left or res["foreign"]:
+        raise AssertionError(f"after stop: processes {left} and the task's worker "
+                             f"({task_left}) left; the task loaded {res['foreign']}")
+    if min(free["after_scale_down"], free["after_stop"]) < free["before_start"] - (1 << 30):
+        raise AssertionError(f"the card's free memory did not come back: {free}")
+    return launches
+
+
+# ------------------------------------------------------------- chaos_worker
+# A card worker SIGKILLed by the port's ProcessKiller mid-task: the runtime
+# retries the task (max_retries=1) in a new worker, which must give the same
+# logits; the victim's CUDA context must be gone with it.
+def chaos_card_task(rows_path: str, work_dir: str) -> dict:
+    """The chaos_worker phase's card task. Its first attempt starts CUDA,
+    says it is ready (``ready-<pid>``) and waits to be killed; the retry
+    (``struck`` exists) waits for ``go`` before it touches the card, then
+    runs job_cli_score."""
+    pid = os.getpid()
+    struck = os.path.join(work_dir, "struck")
+    if not os.path.exists(struck):
+        import torch
+
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()  # this worker now holds a context on the card
+        open(os.path.join(work_dir, f"ready-{pid}"), "w").close()
+    go = os.path.join(work_dir, "go")
+    while not os.path.exists(go):
+        time.sleep(0.02)
+    return {**job_cli_score(rows_path), "retried": os.path.exists(struck)}
+
+
+def phase_chaos_worker(card: str, forward_rows, forward_last) -> dict:
+    """ray_tpu_torch.init(num_cpus=2) with no worker started, then one
+    num_gpus=1, max_retries=1 task (chaos_card_task); once its worker
+    holds a CUDA context and waits, ProcessKiller(_owned_cluster, seed=0,
+    target="worker", max_kills=1).strike_once() with the chaos controller
+    armed. The victim must be the task's worker (the only READY one); the
+    card's free memory once it has exited must be within 1 GiB of the
+    reading before the task; the retry, released then, must return from a
+    new pid with 32 forward launches and logits within 1e-6 relative L2 of
+    ``forward_last``; killer.kills and state.list_chaos_events() must hold
+    the one strike. Returns the retry's launches."""
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import chip_smoke  # by reference: the workers import it from this script's directory
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import state
+    from ray_tpu_torch.core import api as _api
+    from ray_tpu_torch.devtools import chaos
+    from ray_tpu_torch.devtools.chaos.killers import ProcessKiller
+    from ray_tpu_torch.devtools.chaos.plan import ChaosPlan
+
+    secs, free = {}, {}
+    tmp = tempfile.mkdtemp(prefix="rtt_chaos_worker_")
+    rows_path, log_dir = os.path.join(tmp, "tokens.npy"), os.path.join(tmp, "chaos")
+    np.save(rows_path, forward_rows)
+    t = t_phase = time.perf_counter()
+    rt.init(num_cpus=2)
+    chaos.enable(ChaosPlan(seed=0, rules=[]), log_dir=log_dir)
+    try:
+        secs["init"] = time.perf_counter() - t
+        cluster = _api._owned_cluster
+        free["before_task"] = _free_card_bytes()
+        task = rt.remote(num_gpus=1, max_retries=1)(chip_smoke.chaos_card_task)
+        t = time.perf_counter()
+        ref = task.remote(rows_path, tmp)
+
+        def ready():
+            return glob.glob(os.path.join(tmp, "ready-*"))
+
+        deadline = time.monotonic() + JOB_CLI_WAIT_S
+        while not ready():
+            if time.monotonic() > deadline:
+                raise AssertionError("chaos_worker: the card task never started CUDA")
+            time.sleep(0.05)
+        victim = int(ready()[0].rsplit("-", 1)[1])
+        secs["task_ready"] = time.perf_counter() - t
+        free["victim_holding_context"] = _free_card_bytes()
+        ready_workers = [w.proc.pid for r in cluster.raylets for w in r.all_workers.values()
+                         if w.proc.poll() is None and w.address is not None]
+        if ready_workers != [victim]:
+            raise AssertionError(f"chaos_worker: READY workers {ready_workers}, want only "
+                                 f"the card task's {victim}")
+        open(os.path.join(tmp, "struck"), "w").close()  # before the strike: the retry waits
+        killer = ProcessKiller(cluster, seed=0, target="worker", max_kills=1)
+        t = time.perf_counter()
+        killer.strike_once()
+        killer.strike_once()  # max_kills=1: no second strike
+        deadline = time.monotonic() + 30
+        while _pid_alive(victim) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        secs["kill_to_victim_exit"] = time.perf_counter() - t
+        deadline = time.monotonic() + 30
+        while (_free_card_bytes() < free["before_task"] - (1 << 30)
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        free["after_victim_exit"] = _free_card_bytes()
+        secs["victim_exit_to_memory_back"] = time.perf_counter() - t - secs["kill_to_victim_exit"]
+        open(os.path.join(tmp, "go"), "w").close()
+        t = time.perf_counter()
+        res = rt.get(ref, timeout=600)
+        secs["release_to_result"] = time.perf_counter() - t
+        events = [e for e in state.list_chaos_events(log_dir=log_dir)
+                  if e.get("point") == "killer.worker"]
+    finally:
+        chaos.disable()
+        rt.shutdown()
+    secs["task_init_s"] = res["init_s"]
+    secs["task_forward_ms"] = res["forward_ms"]
+    secs["phase"] = time.perf_counter() - t_phase
+    rel = rel_l2(torch.from_numpy(res["logits"]), torch.from_numpy(forward_last))
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches = res["launches"]
+    kills = [{k: v for k, v in kill.items() if k != "ts"} for kill in killer.kills]
+    emit({"phase": "chaos_worker", "victim_pid": victim, "kills": kills,
+          "logged_kills": [e.get("ctx") for e in events], "retry_pid": res["task_pid"],
+          "retried": res["retried"], "retry_visible": res["visible"],
+          "retry_foreign": res["foreign"], "retry_launches": launches,
+          "logits_rel_l2_vs_forward": rel, "tol": 1e-6, "bitwise": rel == 0.0,
+          "free_bytes": free, "seconds": secs, "card": card})
+    if len(kills) != 1 or kills[0]["pid"] != victim or kills[0]["target"] != "worker":
+        raise AssertionError(f"the killer's strikes {kills}, want one at the card worker {victim}")
+    if [e.get("ctx", {}).get("pid") for e in events] != [victim]:
+        raise AssertionError(f"the chaos event log's kills {events}")
+    if res["task_pid"] == victim or not res["retried"]:
+        raise AssertionError(f"the task was not retried in a new worker: {res['task_pid']}")
+    if launches.get("flash_attention_fwd") != 32 or sum(launches.values()) != 32:
+        raise AssertionError(f"the retry's flash launches {launches}, want 32 forward")
+    if not rel <= 1e-6:
+        raise AssertionError(f"the retry's logits: rel L2 {rel} against the forward phase's")
+    if free["after_victim_exit"] < free["before_task"] - (1 << 30) or res["foreign"]:
+        raise AssertionError(f"the victim's context was not released: {free}; "
+                             f"the retry loaded {res['foreign']}")
     return launches
 
 
@@ -5042,6 +5370,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # a cluster of its own, started and stopped through the CLI
     job_cli_launches = phase_job_cli(card, forward_rows, forward_last)
+    # a card node brought up by queued demand, and a card worker killed mid-task
+    autoscale_launches = phase_autoscale(card, forward_rows, forward_last)
+    chaos_worker_launches = phase_chaos_worker(card, forward_rows, forward_last)
     phase_rllib_parity(card)
     # the RL drivers' runner actors, PPO's learner actors and the offline
     # shard tasks run on a runtime of their own
@@ -5093,6 +5424,10 @@ def main() -> int:
                "workflow_launches": workflow_launches.get(name, 0),
                # the job_cli job's card task, counted in it
                "job_cli_launches": job_cli_launches.get(name, 0),
+               # the autoscaled node's card task, counted in it
+               "autoscale_launches": autoscale_launches.get(name, 0),
+               # the killed card task's retry, counted in it
+               "chaos_worker_launches": chaos_worker_launches.get(name, 0),
                # both stages' launches over dag_pipeline's timed overlap executes
                "dag_pipeline_launches": sum(dag_launches.values())
                if name == "flash_attention_fwd" else 0,

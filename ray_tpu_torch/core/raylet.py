@@ -377,7 +377,11 @@ class Raylet:
         self.idle_workers: list[WorkerHandle] = []
         self.all_workers: dict[WorkerID, WorkerHandle] = {}
         self._pending_lease_q: asyncio.Queue = asyncio.Queue()
-        self._lease_waiters: list[tuple[dict, asyncio.Future, tuple | None]] = []
+        # parked lease requests: (resources, future, pg key, requester's
+        # connection, request). The future resolves True on a local grant,
+        # or to the spillback reply when a node that joins can hold a
+        # lease this node never can (_spill_parked)
+        self._lease_waiters: list[tuple[dict, asyncio.Future, tuple | None, object, dict]] = []
         # client-reported task backlog (work queued driver-side that is not
         # a parked lease request), summed into the heartbeat demand signal
         # (ref: autoscaler v2 resource-demand reporting, autoscaler.proto)
@@ -538,6 +542,7 @@ class Raylet:
                     n for n in self.cluster_view if n["node_id"] != node["node_id"]
                 ]
                 self.cluster_view.append(node)
+                self._spill_parked()
             elif event.get("event") == "removed":
                 self.cluster_view = [
                     n for n in self.cluster_view if n["node_id"] != event["node_id"]
@@ -908,14 +913,19 @@ class Raylet:
             if spill is not None:
                 return {"granted": False, "spill_to": spill}
             fut = asyncio.get_running_loop().create_future()
-            self._lease_waiters.append((resources, fut, pg_key, conn))
+            self._lease_waiters.append((resources, fut, pg_key, conn, p))
             try:
-                await fut  # resolved by _grant_waiters when resources free up
+                # resolved by _grant_waiters when resources free up, or by
+                # _spill_parked when a joining node can hold what this one
+                # never can
+                parked = await fut
             except asyncio.CancelledError:
                 # requester disconnected while queued (see _on_disconnect)
-                if fut.done() and not fut.cancelled():
+                if fut.done() and not fut.cancelled() and fut.result() is True:
                     self._free_resources(resources, pg_key)
                 raise
+            if parked is not True:
+                return parked  # the spillback reply
         return await self._grant_lease(conn, p, resources, pg_key)
 
     async def _grant_lease(self, conn, p, resources, pg_key) -> dict:
@@ -1142,13 +1152,36 @@ class Raylet:
 
     def _grant_waiters(self):
         still: list = []
-        for resources, fut, pg_key, conn in self._lease_waiters:
+        for waiter in self._lease_waiters:
+            resources, fut, pg_key, conn, _ = waiter
             if fut.done() or conn._closed:
                 continue  # requester gone: drop without allocating
             if self._try_allocate(resources, pg_key):
                 fut.set_result(True)
             else:
-                still.append((resources, fut, pg_key, conn))
+                still.append(waiter)
+        self._lease_waiters = still
+
+    def _spill_parked(self):
+        """A node joined or changed: answer each parked lease that this
+        node can never hold (its totals fall short) and a peer now fits
+        with that peer's spillback reply, as Ray re-schedules its
+        infeasible queue when a node is added. Without it a lease parked
+        on a card-less head would wait there after the card's node came
+        up. Feasible-but-busy waiters, placement-group and no-spill leases
+        stay parked."""
+        still: list = []
+        for waiter in self._lease_waiters:
+            resources, fut, pg_key, conn, p = waiter
+            if fut.done() or conn._closed:
+                continue
+            spill = None
+            if pg_key is None and not policy.fits(resources, self.ledger.total):
+                spill = self._pick_spillback(resources, p)
+            if spill is None:
+                still.append(waiter)
+            else:
+                fut.set_result({"granted": False, "spill_to": spill})
         self._lease_waiters = still
 
     def _on_client_disconnect(self, conn):
@@ -1169,7 +1202,7 @@ class Raylet:
                                      (ent["wconn"], []))[1].append(lane)
         self._tunnel_send_grouped(by_worker, "tunnel_detach", "lanes")
         # a failed send means the worker is gone too
-        for resources, fut, pg_key, waiter_conn in self._lease_waiters:
+        for _, fut, _, waiter_conn, _ in self._lease_waiters:
             if waiter_conn is conn and not fut.done():
                 fut.cancel()
         self._lease_waiters = [w for w in self._lease_waiters if w[3] is not conn]
@@ -2438,15 +2471,25 @@ def main():
     raylet_box: list[Raylet] = []
 
     def _terminate(signum, frame):
-        # SIGTERM from the head's shutdown(): unlink the shm arena and kill
-        # workers, or every run leaks object_store_memory of /dev/shm
+        # SIGTERM from the head's shutdown(), `stop` or an autoscaler's
+        # scale-down: unlink the shm arena and end the workers, or every
+        # run leaks object_store_memory of /dev/shm. The workers are
+        # waited for (3 s, then SIGKILL): the node leaves the cluster only
+        # once a card worker's context has gone with them
         if raylet_box:
             r = raylet_box[0]
-            for w in r.all_workers.values():
+            procs = [w.proc for w in r.all_workers.values()]
+            for proc in procs:
                 try:
-                    w.proc.terminate()
+                    proc.terminate()
                 except OSError:
                     pass
+            deadline = time.monotonic() + 3.0
+            for proc in procs:
+                try:
+                    proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    proc.kill()
             try:
                 r.store.destroy()
             except Exception:  # raylint: disable=RT012 — exiting via os._exit: nowhere to report

@@ -4,7 +4,7 @@ The port's copy of ``ray_tpu/scripts.py`` (ref:
 python/ray/scripts/scripts.py:2734 — `ray start/stop/status` plus the
 `ray list/summary/timeline` state commands from util/state/state_cli.py).
 
-    python -m ray_tpu_torch start --head [--num-cpus N] [--num-gpus N]
+    python -m ray_tpu_torch start --head [--num-cpus N] [--num-gpus N] [--autoscale MIN:MAX]
     python -m ray_tpu_torch start --address HOST:PORT      # join as a new node
     python -m ray_tpu_torch status  [--address HOST:PORT]
     python -m ray_tpu_torch list tasks|actors|nodes|objects|pgs
@@ -17,8 +17,14 @@ python/ray/scripts/scripts.py:2734 — `ray start/stop/status` plus the
     python -m ray_tpu_torch stop
 
 ``start`` runs ``ray_tpu_torch.core.gcs`` and ``ray_tpu_torch.core.raylet``
-as daemons; the raylet counts the node's cards itself (and marks their
-``accelerator_type``) unless ``--num-gpus`` is given. The session file
+as daemons; the raylet counts the node's cards itself through NVML (and
+marks their ``accelerator_type``) unless ``--num-gpus`` is given. With
+``--autoscale MIN:MAX`` the head also runs the internal
+``_autoscaler_monitor`` command: an ``Autoscaler`` over a
+``LocalSubprocessProvider`` that starts a raylet on this host while lease
+demand is queued and ends it once idle (such a raylet is the monitor's
+child, not in the session file; the monitor ends its raylets when ``stop``
+ends it). The session file
 (``$TMPDIR/ray_tpu_torch/session.json``) and the daemons' logs
 (``$TMPDIR/ray_tpu_torch/logs``) sit apart from the JAX package's, so
 neither package's ``stop`` reaches the other's cluster.
@@ -115,9 +121,20 @@ def cmd_start(args):
                               stdout=logf("raylet"), stderr=subprocess.STDOUT)
     pids.append(raylet.pid)
 
+    autoscaler_note = ""
+    if args.head and args.autoscale:
+        lo, hi = (int(x) for x in args.autoscale.split(":"))
+        mon = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.scripts", "_autoscaler_monitor",
+             "--address", gcs_address, "--min-nodes", str(lo), "--max-nodes", str(hi)],
+            env=env, stdout=logf("autoscaler"), stderr=subprocess.STDOUT,
+        )
+        pids.append(mon.pid)
+        autoscaler_note = f", autoscaler {lo}:{hi}"
+
     if args.head:
         _save_session({"gcs_address": gcs_address, "pids": pids})
-        print(f"ray_tpu_torch head started at {gcs_address}")
+        print(f"ray_tpu_torch head started at {gcs_address}{autoscaler_note}")
         print(f"  connect:  ray_tpu_torch.init(address={gcs_address!r})")
         print(f"  stop:     python -m ray_tpu_torch stop")
     else:
@@ -295,6 +312,37 @@ def cmd_job(args):
         print("stopped" if jobmod.stop_job(args.job_id) else "not running")
 
 
+def cmd_autoscaler_monitor(args):
+    """Internal: run the autoscaler reconciler (launched by start --head)."""
+    from ray_tpu_torch.autoscaler import Autoscaler, AutoscalerConfig, LocalSubprocessProvider
+
+    host, port = args.address.rsplit(":", 1)
+    provider = LocalSubprocessProvider(args.address)
+    scaler = Autoscaler(
+        (host, int(port)), provider,
+        AutoscalerConfig(min_nodes=args.min_nodes, max_nodes=args.max_nodes),
+    )
+    stop_evt = {"stop": False}
+
+    def _term(signum, frame):
+        stop_evt["stop"] = True
+
+    # `stop` sends SIGTERM: the provider's raylet children must die with
+    # the monitor, or they (and a card worker's context) outlive the GCS.
+    # They go first, and the reconciler's thread (a daemon) gets 1 s: it
+    # may sit in a reconnect to the stopped GCS for up to 10 s, and `stop`
+    # SIGKILLs a monitor still up after 5 s
+    signal.signal(signal.SIGTERM, _term)
+    signal.signal(signal.SIGINT, _term)
+    scaler.start()
+    try:
+        while not stop_evt["stop"]:
+            time.sleep(0.2)
+    finally:
+        provider.shutdown()
+        scaler.stop(timeout=1.0)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="ray_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -307,6 +355,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-gpus", type=float, default=None,
                    help="cards to offer (default: the raylet counts them)")
     p.add_argument("--resources", default="")
+    p.add_argument("--autoscale", default=None, metavar="MIN:MAX")
     p.set_defaults(fn=cmd_start)
 
     p = sub.add_parser("stop", help="stop the local session")
@@ -376,6 +425,12 @@ def build_parser() -> argparse.ArgumentParser:
 
     cp = add_chaos_parser(sub)
     cp.set_defaults(fn=lambda args: sys.exit(cmd_chaos(args)))
+
+    p = sub.add_parser("_autoscaler_monitor")
+    p.add_argument("--address", required=True)
+    p.add_argument("--min-nodes", type=int, default=1)
+    p.add_argument("--max-nodes", type=int, default=4)
+    p.set_defaults(fn=cmd_autoscaler_monitor)
     return parser
 
 

@@ -147,7 +147,9 @@ def _referenced_modules(obj, depth: int, seen: set):
         return
     yield getattr(obj, "__module__", None)
     if isinstance(obj, types.FunctionType):
-        refs = []
+        # default arguments travel with the function too (a Pool's
+        # initializer rides its task function's defaults)
+        refs = list(obj.__defaults__ or ()) + list((obj.__kwdefaults__ or {}).values())
         for cell in obj.__closure__ or ():
             try:
                 refs.append(cell.cell_contents)

@@ -3,10 +3,10 @@
 (``ray_tpu_torch/dashboard.py`` with ``dashboard_client/``) and the chaos
 subcommand, against the JAX package's.
 
-Every case of ``tests/test_cluster_tools.py`` but the autoscaler's (the
-port has no ``autoscaler/`` yet): a head started and stopped through the
-CLI, ``stop`` ending the session's processes, and the dashboard's
-endpoints. JAX's dashboard case sleeps a fixed 1.5 s for the task-event
+Every case of ``tests/test_cluster_tools.py`` but the autoscaler's (that
+one is in ``tests/test_torch_autoscaler.py``): a head started and stopped
+through the CLI, ``stop`` ending the session's processes, and the
+dashboard's endpoints. JAX's dashboard case sleeps a fixed 1.5 s for the task-event
 flush; here it polls. Then the operator's path that ``chip_smoke.py``'s
 ``job_cli`` phase drives on the card, with aiohttp hidden from every
 process of the cluster (as on the card's host): ``start --head``,
@@ -16,8 +16,9 @@ actors``, the job's logs, ``/api/tasks``, ``/api/timeline``, ``/metrics``,
 a second job stopped over REST, and ``stop``. And: the dashboard's
 (method, path) routes equal those of JAX's ``build_app()``; the three SPA
 files equal JAX's but for the brand name; the CLI parser has JAX's
-subcommands and flags but for ``--num-gpus`` in place of ``--num-tpus`` and
-the autoscaler and lint commands, which the port leaves out for now.
+subcommands and flags (``start --autoscale`` and ``_autoscaler_monitor``
+among them) but for ``--num-gpus`` in place of ``--num-tpus`` and the
+``lint`` command, which the port leaves out for now.
 
 Every CLI cluster has a ``TMPDIR`` of its own, is stopped in a finalizer,
 and its processes are checked gone.
@@ -375,16 +376,16 @@ def test_cli_parser_matches_jax():
 
     jax = _parser_tree(_jax_parser())
     ours = _parser_tree(scripts.build_parser())
-    # the port's substitutions and omissions, and nothing else
-    jax["start"] = sorted(["--num-gpus" if f == "--num-tpus" else f for f in jax["start"]
-                           if f != "--autoscale"])
-    for path in [p for p in jax if p.split(" ")[0] in ("lint", "_autoscaler_monitor")]:
+    # the port's substitution and omission, and nothing else
+    jax["start"] = sorted("--num-gpus" if f == "--num-tpus" else f for f in jax["start"])
+    for path in [p for p in jax if p.split(" ")[0] == "lint"]:
         del jax[path]
     assert ours == jax
     assert set(ours) >= {"start", "stop", "status", "list", "summary", "timeline", "dashboard",
                          "job submit", "job status", "job logs", "job list", "job stop",
                          "serve deploy", "serve status", "serve shutdown",
-                         "chaos run", "chaos validate", "chaos events"}
+                         "chaos run", "chaos validate", "chaos events", "_autoscaler_monitor"}
+    assert "--autoscale" in ours["start"]
 
 
 def test_dashboard_routes_match_jax():

@@ -70,7 +70,12 @@ SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
                "ray_tpu_torch.workflow", "ray_tpu_torch.workflow.api",
                "ray_tpu_torch.state", "ray_tpu_torch.job", "ray_tpu_torch.dashboard",
                "ray_tpu_torch.scripts", "ray_tpu_torch.client", "ray_tpu_torch.util.metrics",
-               "ray_tpu_torch.devtools.chaos.cli"]
+               "ray_tpu_torch.devtools.chaos.cli",
+               "ray_tpu_torch.autoscaler", "ray_tpu_torch.autoscaler.autoscaler",
+               "ray_tpu_torch.autoscaler.instance_manager",
+               "ray_tpu_torch.autoscaler.node_provider", "ray_tpu_torch.autoscaler.gke",
+               "ray_tpu_torch.util.multiprocessing", "ray_tpu_torch.devtools.chaos.killers",
+               "ray_tpu_torch.devtools.churn"]
 # the operator's surface: it serves from the card's host, which has no aiohttp
 OPERATOR = ["ray_tpu_torch.state", "ray_tpu_torch.job", "ray_tpu_torch.dashboard",
             "ray_tpu_torch.scripts", "ray_tpu_torch.__main__", "ray_tpu_torch.client",
@@ -235,3 +240,23 @@ def test_operator_exports_match_jax(name):
     theirs = importlib.import_module(f"ray_tpu.{name}")
     assert _exports(ours) == _exports(theirs)
     assert all(hasattr(ours, n) for n in _exports(theirs))
+
+
+# the GKE provider's TPU slice table and class become GPU ones
+_GKE_RENAMES = {"GKETPUPodProvider": "GKEGPUNodeProvider", "TPU_SLICES": "GPU_NODE_TYPES"}
+
+
+@pytest.mark.parametrize("name", ["autoscaler", "autoscaler.autoscaler",
+                                  "autoscaler.instance_manager", "autoscaler.node_provider",
+                                  "autoscaler.gke", "util.multiprocessing",
+                                  "devtools.chaos.killers", "devtools.churn"])
+def test_autoscaler_pool_killers_churn_exports_match_jax(name):
+    """autoscaler/, util.multiprocessing, the killers and churn export the
+    JAX package's names (the GKE provider's two renamed for GPUs), and
+    every one resolves."""
+    import importlib
+
+    ours = importlib.import_module(f"ray_tpu_torch.{name}")
+    theirs = importlib.import_module(f"ray_tpu.{name}")
+    assert _exports(ours) == {_GKE_RENAMES.get(n, n) for n in _exports(theirs)}
+    assert all(hasattr(ours, n) for n in _exports(ours))

@@ -32,6 +32,9 @@ _module_limit, _test_limit = time_limits(module_s=180, test_s=90)
 def parity(tmp_path_factory):
     """Both packages' job runs, started now and read by the parity tests
     at the end of the module (they run while the module does)."""
+    # the base temp dir is made at its first use, unlocked: made here, before
+    # the runs' threads, so they and this module's tests never race to mkdir it
+    tmp_path_factory.getbasetemp()
     pool = concurrent.futures.ThreadPoolExecutor(1)
     fut = pool.submit(_torch_state_jax.run_once, tmp_path_factory)
     yield fut

@@ -42,6 +42,9 @@ _module_limit, _test_limit = time_limits(module_s=180, test_s=60)
 def parity(tmp_path_factory):
     """Both packages' scripted runs, started now and read by the parity
     tests at the end of the module (they run while the module does)."""
+    # the base temp dir is made at its first use, unlocked: made here, before
+    # the runs' threads, so they and this module's tests never race to mkdir it
+    tmp_path_factory.getbasetemp()
     pool = concurrent.futures.ThreadPoolExecutor(1)
     fut = pool.submit(_torch_state_jax.run_once, tmp_path_factory)
     yield fut
@@ -348,12 +351,18 @@ def _pump_fast_lane(n=10):
 def test_prometheus_metrics_and_native_gauges(rt):
     # ring stats are summed over live lanes, and this module returns idle
     # leases (closing their lanes) after 1 s: every poll keeps a lane busy,
-    # so the 1 Hz flush and the read below see it however slow the host is
+    # so the 1 Hz flush and the read below see it however slow the host is.
+    # The stage histogram can exist before this test's task stages do: an
+    # earlier test in this process left actor_* stages (or telemetry's
+    # spill/restore), and the task samples the pump adds reach the registry
+    # only at this process's next 1 Hz flush. So the poll waits for the exec
+    # stage, not just for the series' name.
     def surfaced():
         _pump_fast_lane(n=2)
         pm = state.prometheus_metrics()
         return pm if ("rt_fastpath_ring" in pm and "rt_task_stage_seconds_bucket" in pm
-                      and "rt_object_store" in pm) else None
+                      and "rt_object_store" in pm and 'stage="exec"' in pm
+                      and 'which="sub"' in pm) else None
 
     pm = _wait_for(surfaced, msg="native gauges / stage histograms absent")
     # structured labels render as real prometheus label pairs
