@@ -335,6 +335,19 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               Each rllib phase reads the flash kernels' launches where its
               updates run, counted there from 0 (the driver's, and in
               rllib_ppo and rllib_learners each learner actor's): 0.
+24. lint    — the port's linter (ray_tpu_torch/devtools/lint), static, on the
+              card's host: `python -m ray_tpu_torch lint --flow` over the
+              package in a subprocess must exit 0 with 0 findings and
+              import no torch (its seconds printed); RT017's flagged
+              functions of LINT_SYNC_SOURCE (a loop per sync leg over a
+              CUDA tensor, and the clean shapes) against those that raise
+              under torch.cuda.set_sync_debug_mode("error"): each that
+              raises must be flagged, each leg flagged, no clean shape
+              flagged or raising, and the legs the detector does not see
+              printed with what the card did; then, as information, the
+              syncs the detector warns of in one paged_decode_multi call
+              (8 steps) of the serving phases' 2-layer float32 engine,
+              beside the flow pass's verdict on that root.
 
 The script and every process it starts share one bytecode cache under the
 git-ignored ray_tpu_torch/_build/pycache (keep_bytecode).
@@ -5270,6 +5283,336 @@ def phase_rllib_learners(card: str) -> dict:
     return dict(flash)
 
 
+# The lint phase's sync cross-check: one function per RT017 leg (leg_*),
+# each looping over a CUDA tensor, and the clean shapes (clean_*). RT017
+# flags a set F of them; the card's own detector
+# (torch.cuda.set_sync_debug_mode("error")) raises in a set S.
+LINT_SYNC_SOURCE = """\
+import numpy as np
+import torch
+
+
+def leg_item(x):
+    y = torch.mul(x, 2)
+    return [y[i].sum().item() for i in range(y.shape[0])]
+
+
+def leg_tolist(x):
+    y = torch.mul(x, 2)
+    out = []
+    for i in range(y.shape[0]):
+        out.append(y[i].tolist())
+    return out
+
+
+def leg_cpu(x):
+    y = torch.mul(x, 2)
+    out = []
+    for i in range(y.shape[0]):
+        out.append(y[i].cpu())
+    return out
+
+
+def leg_numpy(x):
+    y = torch.mul(x, 2)
+    out = []
+    for i in range(y.shape[0]):
+        out.append(y[i].numpy(force=True))
+    return out
+
+
+def leg_to_cpu(x):
+    y = torch.mul(x, 2)
+    out = []
+    for i in range(y.shape[0]):
+        out.append(y[i].to("cpu"))
+    return out
+
+
+def leg_to_device_cpu(x):
+    y = torch.mul(x, 2)
+    out = []
+    for i in range(y.shape[0]):
+        out.append(y[i].to(device="cpu"))
+    return out
+
+
+def leg_float(x):
+    y = torch.mul(x, 2)
+    total = 0.0
+    for row in y:
+        total += float(row.sum())
+    return total
+
+
+def leg_int(x):
+    y = torch.argmax(x, dim=-1)
+    out = []
+    for i in range(y.shape[0]):
+        out.append(int(y[i]))
+    return out
+
+
+def leg_bool(x):
+    y = torch.mul(x, 2)
+    n = 0
+    for i in range(y.shape[0]):
+        if bool(y[i].sum() > 0):
+            n += 1
+    return n
+
+
+def leg_np_asarray(x):
+    y = torch.mul(x, 2)
+    out = []
+    for i in range(y.shape[0]):
+        out.append(np.asarray(y[i]))
+    return out
+
+
+def leg_np_array(x):
+    y = torch.mul(x, 2)
+    out = []
+    for i in range(y.shape[0]):
+        out.append(np.array(y[i]))
+    return out
+
+
+def leg_cuda_synchronize(x):
+    y = x
+    for _ in range(4):
+        y = torch.mul(y, 2)
+        torch.cuda.synchronize()
+    return y
+
+
+def leg_stream_synchronize(x):
+    stream = torch.cuda.current_stream()
+    y = x
+    for _ in range(4):
+        y = torch.mul(y, 2)
+        stream.synchronize()
+    return y
+
+
+def leg_event_synchronize(x):
+    y = x
+    for _ in range(4):
+        y = torch.mul(y, 2)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+    return y
+
+
+def clean_copy_after_loop(x):
+    # the engine's shape: queue the block, then ONE non-blocking copy to
+    # pinned memory and an event; the host waits on it outside (_HostCopy)
+    blocks = []
+    for i in range(x.shape[0]):
+        blocks.append(torch.mul(x[i], 2))
+    stacked = torch.stack(blocks)
+    host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
+    host.copy_(stacked, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def clean_queue_only(x):
+    acc = torch.zeros_like(x[0])
+    for i in range(x.shape[0]):
+        acc = acc + torch.mul(x[i], i)
+    return acc
+
+
+def clean_metadata(x):
+    y = torch.mul(x, 2)
+    out = []
+    for i in range(y.shape[0]):
+        n = y.size(1)
+        out.append(int(n) + i)
+    return out
+
+
+def clean_host_tensor(x):
+    h = torch.ones(x.shape[0], device="cpu")
+    total = 0.0
+    for i in range(x.shape[0]):
+        total += float(h[i])
+    return total
+
+
+def clean_rebound(x):
+    out = []
+    for i in range(x.shape[0]):
+        r = torch.mul(x[i], 2)
+        r = [i, i + 1]
+        out.append(np.asarray(r))
+    return out
+
+
+def clean_deferred(x):
+    y = torch.mul(x, 2)
+    fns = []
+    for i in range(y.shape[0]):
+        fns.append(lambda i=i: y[i].item())
+    return fns
+"""
+
+
+def _sync_outcome(fn, x) -> str:
+    """'sync' when the card's detector raised, 'ok' when fn returned, else
+    the other exception's type and message."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(x)
+    except RuntimeError as e:
+        if "synchronizing CUDA operation" not in str(e):
+            return f"RuntimeError: {e}"
+        return "sync"
+    except Exception as e:  # noqa: BLE001 — reported beside the leg
+        return f"{type(e).__name__}: {e}"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if isinstance(out, tuple) and len(out) == 2 and isinstance(out[1], torch.cuda.Event):
+        out[1].synchronize()  # clean_copy_after_loop's wait, outside the detector
+    return "ok"
+
+
+def phase_lint(card: str, here: str) -> None:
+    """The port's linter on the card's host: (a) `python -m ray_tpu_torch
+    lint --flow` over the package in a subprocess, which must exit 0 with
+    0 findings and import no torch; (b) RT017's flagged functions F of
+    LINT_SYNC_SOURCE against the functions S that raise under
+    set_sync_debug_mode("error"): every function in S must be in F, every
+    leg in F, no clean shape in F or S, and the legs in F but not in S
+    (the detector does not see the sync the rule names) are printed with
+    what the card did; (c) as information, the syncs the detector warns
+    of in one paged_decode_multi call of the serving phases' 2-layer
+    float32 engine, beside the flow pass's verdict on that root."""
+    import ast
+    import warnings
+
+    import numpy as np
+    import torch
+
+    started = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": here}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-m", "ray_tpu_torch", "lint",
+                           "--flow"], capture_output=True, text=True, cwd=here, env=env,
+                          timeout=300)
+    self_lint_s = time.perf_counter() - t0
+    imported = {line.rsplit("|", 1)[1].strip().split(".")[0]
+                for line in proc.stderr.splitlines()
+                if line.startswith("import time:") and "|" in line}
+    foreign = sorted(imported & {"torch", "jax", "jaxlib", "ray_tpu"})
+    summary = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    emit({"phase": "lint", "part": "self_lint", "rc": proc.returncode, "summary": summary,
+          "seconds": self_lint_s, "modules_imported": len(imported),
+          "foreign_imports": foreign, "card": card})
+    if proc.returncode != 0 or summary != "raylint: 0 findings" or foreign:
+        raise AssertionError(f"lint: self-lint failed (rc {proc.returncode}, {foreign}):\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-2000:]}")
+
+    from ray_tpu_torch.devtools.lint import flow, lint_source
+
+    tree = ast.parse(LINT_SYNC_SOURCE)
+    spans = {f.name: (f.lineno, f.end_lineno) for f in tree.body
+             if isinstance(f, ast.FunctionDef)}
+    names = [n for n in spans if n.startswith(("leg_", "clean_"))]
+    t0 = time.perf_counter()
+    found = lint_source(LINT_SYNC_SOURCE, "lint_sync.py", select=["RT017"])
+    flagged = {n for f in found for n, (a, b) in spans.items() if a <= f.line <= b}
+    ns: dict = {}
+    exec(compile(LINT_SYNC_SOURCE, "lint_sync.py", "exec"), ns)
+    x = torch.randn(4, 8, device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
+    warm = {}
+    for n in names:  # outside the detector: lazy allocations and loads
+        try:
+            ns[n](x)
+        except TypeError as e:  # numpy of a CUDA tensor: reported below
+            warm[n] = f"TypeError: {e}"
+    torch.cuda.synchronize()
+    outcome = {n: _sync_outcome(ns[n], x) for n in names}
+    raised = {n for n, o in outcome.items() if o == "sync"}
+    legs = {n for n in names if n.startswith("leg_")}
+    clean = set(names) - legs
+    blind = {n: outcome[n] for n in sorted(flagged - raised)}
+    emit({"phase": "lint", "part": "sync_cross_check", "rule": "RT017",
+          "flagged": sorted(flagged), "raised": sorted(raised),
+          "detector_blind": blind, "clean": sorted(clean), "warm_up_errors": warm,
+          "seconds": time.perf_counter() - t0, "card": card})
+    bad = {"raised_not_flagged": sorted(raised - flagged),
+           "legs_not_flagged": sorted(legs - flagged),
+           "clean_flagged": sorted(clean & flagged),
+           "clean_not_ok": {n: outcome[n] for n in sorted(clean) if outcome[n] != "ok"}}
+    if any(bad.values()):
+        raise AssertionError(f"lint: RT017 disagrees with the card's sync detector: {bad}")
+
+    from ray_tpu_torch.llm import ContinuousBatchingEngine
+    from ray_tpu_torch.llm.engine import paged_decode_multi
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2, dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    params32 = llama_init(g, cfg32, "cuda")  # the serving phases' 2-layer float32 weights
+    eng = ContinuousBatchingEngine(params32, cfg32, max_batch=4, page_size=16,
+                                   n_pages=512, max_seq_len=2048)
+    lens = np.array([16, 100, 257, 512], np.int64)
+    nxt = np.random.default_rng(SEED).integers(0, cfg32.vocab_size, size=4)
+    K = 8  # a block bucket
+    first = 1  # page 0 is the junk page
+    for i, n in enumerate(lens):
+        need = -(-(int(n) + K) // eng.PS)
+        eng.page_tables[i, :need] = np.arange(first, first + need)
+        first += need
+    # the engine's own argument construction (_dispatch_block); the
+    # host-to-card copies are made before the detector is on
+    args = (eng.params, eng.loras, eng._h2d(eng.aids), eng._h2d(nxt), eng._h2d(lens),
+            eng._h2d(eng.page_tables), eng.kpool, eng.vpool, eng._h2d(np.ones(4, bool)),
+            eng._h2d(eng.temps), eng._gen, eng.cfg, K)
+    paged_decode_multi(*args)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            toks, _, _ = paged_decode_multi(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+    sources = collections.Counter(f"{os.path.relpath(w.filename, here)}:{w.lineno}"
+                                  for w in syncs)
+    toks = toks.cpu()
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = flow.CallGraph.build([os.path.join(here, "ray_tpu_torch")])
+    root = graph.functions["ray_tpu_torch.llm.engine:paged_decode_multi"]
+    under_root = [f for f in flow.analyze_paths([], graph=graph)
+                  if f.rule_id == "RT022" and f.chain[0].startswith(root.qualname + " ")]
+    emit({"phase": "lint", "part": "decode_syncs", "call": "paged_decode_multi",
+          "layers": cfg32.n_layers, "dtype": cfg32.dtype, "batch": 4, "n_steps": K,
+          "seq_lens": lens.tolist(), "detector_syncs": len(syncs),
+          "detector_sources": dict(sources), "flow_root_kind": root.root_kind,
+          "flow_root_cause": root.root_cause, "flow_host_sync_findings": len(under_root),
+          "agree": (len(syncs) == 0) == (not under_root),
+          "tokens_in_vocab": bool(((toks >= 0) & (toks < cfg32.vocab_size)).all()),
+          "seconds": decode_s, "flow_graph_seconds": time.perf_counter() - t0, "card": card})
+    if root.root_kind != "device-region":
+        raise AssertionError(f"lint: paged_decode_multi is not a device region: {root.root_kind}")
+    del eng, params32, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lint", "part": "total", "seconds": time.perf_counter() - started,
+          "card": card})
+
+
 def keep_bytecode(here: str) -> str:
     """Give this process and every process it starts (the runtime's
     workers, the CLI's daemons, jobs' drivers) one bytecode cache under the
@@ -5389,6 +5732,7 @@ def main() -> int:
     rl_launches.update(phase_rllib_offline(card))
     rl_launches.update(phase_rllib_learners(card))
     ray_tpu_torch.shutdown()
+    phase_lint(card, here)
 
     replaces = {"flash_attention_fwd": "ray_tpu/ops/flash_attention.py:49",
                 "flash_attention_bwd_dq": "ray_tpu/ops/flash_attention.py:144",

@@ -1,10 +1,11 @@
 """ray_tpu_torch — the PyTorch/CUDA port of ray_tpu.
 
 A package beside ``ray_tpu`` that imports ``torch`` (never ``jax``, and
-nothing of ``ray_tpu``) and mirrors its layout: the task/actor runtime
-(``core``, ``_native``, ``config``, ``runtime_env``, ``util`` with its
-``multiprocessing.Pool``, ``devtools``' chaos engine, process killers and
-churn harness), ``autoscaler`` (a local raylet provider and a GKE GPU
+nothing of ``ray_tpu``) and mirrors its layout, every module of
+``ray_tpu`` with a counterpart: the task/actor runtime (``core``,
+``_native``, ``config``, ``runtime_env``, ``util`` with its
+``multiprocessing.Pool``, ``devtools``' chaos engine, process killers,
+churn harness and ``lint``, the static analyzer raylint), ``autoscaler`` (a local raylet provider and a GKE GPU
 node-pool provider), ``sharded``, ``ops``, ``models``, ``llm``, ``serve``,
 ``data``, ``dag``, ``parallel``, ``collective``, ``train``, ``tune``
 (with ``air``'s logger callbacks), ``workflow``, ``rllib``,
@@ -13,9 +14,8 @@ state API and timeline), ``job`` (job submission), ``dashboard`` (its
 JSON API and ``dashboard_client/`` SPA on the standard library's HTTP
 server), ``client`` (remote drivers) and the command line
 (``python -m ray_tpu_torch start [--autoscale MIN:MAX]|stop|status|list|
-summary|timeline|dashboard|job|serve|chaos``, ``scripts.py``); only
-``devtools.lint`` and its ``lint`` subcommand are not ported yet. Every Pallas TPU kernel on
-a ported path becomes a kernel written by hand for Hopper (``csrc/``,
+summary|timeline|dashboard|job|serve|chaos|lint``, ``scripts.py``). Every
+Pallas TPU kernel on a ported path becomes a kernel written by hand for Hopper (``csrc/``,
 built by ``kernels``). Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; the runtime's ``num_gpus`` leases whole cards through
 ``CUDA_VISIBLE_DEVICES``.

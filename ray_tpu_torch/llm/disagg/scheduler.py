@@ -777,10 +777,9 @@ class DisaggLLMServer:
                 # The ring plane's abandon already closed the worker's
                 # generator; this reaches streams on the RPC fallback.
                 try:
-                    # best effort: the stream's remainder is discarded
-                    target.cancel_decode.remote(cancel_key)
-                except Exception:
-                    pass  # the worker may be gone; its stream died with it
+                    target.cancel_decode.remote(cancel_key)  # raylint: disable=RT003 -- best-effort cancel: the stream's remainder is discarded either way
+                except Exception:  # raylint: disable=RT012 -- the worker may be gone; its stream died with it
+                    pass
 
     async def _prefill(self, toks, temp, adapter):
         """Cache-aware prefill: longest cached page prefix rides the

@@ -116,8 +116,9 @@ class MultiAgentEnvRunner:
                 ob = torch.as_tensor(np.stack(
                     [np.asarray(self.obs[a], np.float32) for a in live]), device=self.device)
                 act, logp, val = sample_action(self.policies[pid], ob, self._generator)
-                # one device-to-host copy of the three
-                act, logp, val = torch.stack([act.float(), logp, val]).cpu().numpy()
+                # one device-to-host copy of the three: the env steps on
+                # the host, so every step's actions must reach it
+                act, logp, val = torch.stack([act.float(), logp, val]).cpu().numpy()  # raylint: disable=RT017
                 for j, a in enumerate(live):
                     actions[a] = int(act[j])
                     logps[a] = float(logp[j])

@@ -13,6 +13,7 @@ python/ray/scripts/scripts.py:2734 — `ray start/stop/status` plus the
     python -m ray_tpu_torch dashboard [--port 8265]
     python -m ray_tpu_torch job submit|status|logs|list|stop
     python -m ray_tpu_torch serve deploy|status|shutdown
+    python -m ray_tpu_torch lint [paths] [--flow] [--format json] [--rules]
     python -m ray_tpu_torch chaos run|validate|events
     python -m ray_tpu_torch stop
 
@@ -420,6 +421,13 @@ def build_parser() -> argparse.ArgumentParser:
     sp = ssub.add_parser("shutdown")
     sp.add_argument("--address", default=None)
     sp.set_defaults(fn=cmd_serve)
+
+    from ray_tpu_torch.devtools.lint.cli import add_lint_parser, cmd_lint
+
+    lp = add_lint_parser(sub)
+    # cmd_lint returns an exit code rather than printing-and-returning;
+    # adapt it to the `args.fn(args)` convention the other commands use
+    lp.set_defaults(fn=lambda args: sys.exit(cmd_lint(args)))
 
     from ray_tpu_torch.devtools.chaos.cli import add_chaos_parser, cmd_chaos
 

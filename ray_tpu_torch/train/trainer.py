@@ -179,7 +179,8 @@ class TorchTrainer:
             # rank never reads another fit's or a dead attempt's address
             group = f"{os.path.basename(run_dir)}_g{attempt}"
             for rank in range(n):
-                workers.append(cls.options(
+                # per-rank bundle index: the options differ every iteration
+                workers.append(cls.options(  # raylint: disable=RT009
                     num_cpus=resources.get("CPU", 1.0),
                     resources={k: v for k, v in resources.items() if k != "CPU"},
                     placement_group=pg, placement_group_bundle_index=rank,
@@ -197,11 +198,11 @@ class TorchTrainer:
             for w in workers:
                 try:
                     ray_tpu_torch.kill(w)
-                except Exception:  # noqa: BLE001 — teardown: the actor may be dead already
+                except Exception:  # noqa: BLE001  # raylint: disable=RT012 -- teardown: the actor may be dead already
                     pass
             try:
                 ray_tpu_torch.remove_placement_group(pg)
-            except Exception:  # noqa: BLE001 — teardown: the group dies with the cluster
+            except Exception:  # noqa: BLE001  # raylint: disable=RT012 -- teardown: the group dies with the cluster
                 pass
 
     def _poll_loop(self, workers, run_refs, manager: CheckpointManager,
@@ -221,7 +222,9 @@ class TorchTrainer:
             polls, died = [], None
             for rank, ref in enumerate([w.poll.remote() for w in workers]):
                 try:
-                    polls.append(ray_tpu_torch.get(ref, timeout=60))
+                    # every poll is in flight already; one get per rank
+                    # pins a dead worker's ActorError on its rank
+                    polls.append(ray_tpu_torch.get(ref, timeout=60))  # raylint: disable=RT002
                 except ActorError as e:
                     # the living ranks' reports (rank 0's checkpoints) are
                     # registered first: the restart resumes from them

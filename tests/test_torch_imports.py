@@ -75,7 +75,10 @@ SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
                "ray_tpu_torch.autoscaler.instance_manager",
                "ray_tpu_torch.autoscaler.node_provider", "ray_tpu_torch.autoscaler.gke",
                "ray_tpu_torch.util.multiprocessing", "ray_tpu_torch.devtools.chaos.killers",
-               "ray_tpu_torch.devtools.churn"]
+               "ray_tpu_torch.devtools.churn", "ray_tpu_torch.devtools.lint",
+               "ray_tpu_torch.devtools.lint.cli", "ray_tpu_torch.devtools.lint.effects",
+               "ray_tpu_torch.devtools.lint.engine", "ray_tpu_torch.devtools.lint.flow",
+               "ray_tpu_torch.devtools.lint.rules"]
 # the operator's surface: it serves from the card's host, which has no aiohttp
 OPERATOR = ["ray_tpu_torch.state", "ray_tpu_torch.job", "ray_tpu_torch.dashboard",
             "ray_tpu_torch.scripts", "ray_tpu_torch.__main__", "ray_tpu_torch.client",
@@ -260,3 +263,20 @@ def test_autoscaler_pool_killers_churn_exports_match_jax(name):
     theirs = importlib.import_module(f"ray_tpu.{name}")
     assert _exports(ours) == {_GKE_RENAMES.get(n, n) for n in _exports(theirs)}
     assert all(hasattr(ours, n) for n in _exports(ours))
+
+
+def test_lint_exports_match_jax():
+    """devtools.lint exports JAX's names (Finding, Rule, lint_paths,
+    lint_source, register, rule_table, to_json, main), each from the
+    port's own modules."""
+    import ray_tpu.devtools.lint as jlint
+
+    import ray_tpu_torch.devtools.lint as tlint
+
+    names = {"Finding", "Rule", "lint_paths", "lint_source", "register", "rule_table",
+             "to_json", "main"}
+    theirs = {n for n in vars(jlint) if not n.startswith("_")
+              and getattr(getattr(jlint, n), "__module__", "").startswith("ray_tpu.devtools.lint")}
+    ours = {n for n in vars(tlint) if not n.startswith("_")
+            and getattr(getattr(tlint, n), "__module__", "").startswith("ray_tpu_torch.devtools.lint")}
+    assert ours == theirs == names
