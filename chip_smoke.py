@@ -2412,9 +2412,10 @@ DP2_CFG = dict(vocab_size=32000, d_model=1024, n_layers=2, n_heads=8, n_kv_heads
 
 
 # ------------------------------------------------------------------ runtime
-# one tensor through put/get, an argument and a return; by-value arguments
-# cross the RPC socket (ROADMAP Queue 3, 2), so the transfers are most of
-# the phase's time, and the script has a time limit
+# one tensor through put/get, an argument and a return; a by-value argument
+# above max_inline_object_size is sealed into the caller's shm arena and
+# read from there, as a put of it would be, and the phase fails if this
+# one was not
 RUNTIME_TENSOR_BYTES = 256 << 20
 RUNTIME_STORE_BYTES = 8 << 30  # the shm arena: a few such objects alive at once
 RUNTIME_REPS = 1  # each transfer once, into a cold arena
@@ -2459,16 +2460,19 @@ def _same_bytes(a, b) -> bool:
         a.view(bits), b.to(a.device).view(bits))
 
 
-def _runtime_transfers(rt, actor, x, want_device: str) -> dict:
-    """put, get, a task argument (into the actor, which synchronises and
-    describes it) and a round trip (the actor returns it), each timed
-    RUNTIME_REPS times on the host clock; the bytes checked equal."""
+def _runtime_transfers(rt, actor, x, want_device: str, reps: int = RUNTIME_REPS) -> dict:
+    """put, get, a task argument (into ``actor``, a RuntimeEcho, which
+    synchronises and describes it) and a round trip (the actor returns it),
+    each timed ``reps`` times on the host clock; the bytes checked equal, and the
+    argument checked to have gone through the arena (the driver's count of
+    sealed arguments rises by one), not the RPC socket."""
     import torch
 
+    core = rt.get_core()
     nbytes = x.numel() * x.element_size()
     sync = torch.cuda.synchronize
     out = {"put_s": [], "get_s": [], "arg_s": [], "round_trip_s": []}
-    for _ in range(RUNTIME_REPS):
+    for _ in range(reps):
         sync()
         t0 = time.perf_counter()
         ref = rt.put(x)
@@ -2480,9 +2484,12 @@ def _runtime_transfers(rt, actor, x, want_device: str) -> dict:
         if not _same_bytes(x, y) or str(y.device) != str(x.device):
             raise AssertionError(f"get of a {x.dtype} {x.device} tensor: {y.device}, bytes differ")
         del ref, y
+        sealed = core.sealed_args
         t0 = time.perf_counter()
         info = rt.get(actor.describe.remote(x))
         out["arg_s"].append(time.perf_counter() - t0)
+        if core.sealed_args != sealed + 1:
+            raise AssertionError(f"the {nbytes}-byte argument did not go through the arena")
         if info != {"device": want_device, "dtype": str(x.dtype), "shape": list(x.shape)}:
             raise AssertionError(f"the actor got {info}")
         t0 = time.perf_counter()
@@ -2496,7 +2503,8 @@ def _runtime_transfers(rt, actor, x, want_device: str) -> dict:
     rates = {k.replace("_s", "_gb_per_s"): [nbytes / t / 1e9 for t in v] for k, v in out.items()}
     # the round trip moves the bytes twice, into the actor and back
     rates["round_trip_gb_per_s"] = [2 * r for r in rates["round_trip_gb_per_s"]]
-    return {"bytes": nbytes, "dtype": str(x.dtype), "device": str(x.device), **out, **rates}
+    return {"bytes": nbytes, "dtype": str(x.dtype), "device": str(x.device),
+            "arg_through_arena": True, **out, **rates}
 
 
 def phase_runtime(card: str) -> None:
@@ -2549,6 +2557,10 @@ def phase_runtime(card: str) -> None:
           "actor_start_s": actor_start_s, "actor_first_tensors_s": actor_first_tensors_s,
           "gpu_task": task, "gpu_task_s": task_s, "worker_foreign_modules": foreign,
           "store_bytes": RUNTIME_STORE_BYTES, "cuda_tensor": cuda, "cpu_tensor": cpu,
+          "gb_per_s": {t["device"].split(":")[0]: {
+              k.removesuffix("_gb_per_s"): t[k][0] for k in (
+                  "put_gb_per_s", "get_gb_per_s", "arg_gb_per_s", "round_trip_gb_per_s")}
+              for t in (cuda, cpu)},
           "card": card})
     if task["visible"] != "0" or task["name"] != torch.cuda.get_device_name(0) or task["foreign"]:
         raise AssertionError(f"a num_gpus=1 task saw {task}")

@@ -18,6 +18,7 @@
 
 #include <cerrno>
 #include <cstdint>
+#include <cstdio>
 #if defined(__x86_64__) || defined(_M_X64)
 #include <emmintrin.h>  // SSE2 streaming stores (rt_copy_nt)
 #endif
@@ -27,6 +28,7 @@
 
 #include <fcntl.h>
 #include <pthread.h>
+#include <signal.h>
 #include <sys/mman.h>
 #include <sys/stat.h>
 #include <unistd.h>
@@ -81,6 +83,8 @@ bool chaos_seal_strike() {
   return __atomic_add_fetch(&g_chaos_seal_ctr, 1, __ATOMIC_RELAXED) % every == 0;
 }
 
+constexpr int kReaders = 4;  // reader processes an entry keeps by pid
+
 struct Entry {
   uint8_t id[kIdSize];
   uint32_t state;
@@ -89,6 +93,11 @@ struct Entry {
   int32_t refcnt;
   uint32_t pad;
   uint64_t lru_seq;
+  // the first kReaders processes holding rt_get references, and how many
+  // each holds (0: a free slot): a reader that dies holding a zero-copy
+  // view never releases it, and rt_delete takes its references back
+  int32_t reader_pid[kReaders];
+  int32_t reader_refs[kReaders];
 };
 
 struct Block {  // boundary-tag allocator block header, padded so the user
@@ -375,6 +384,56 @@ void erase_entry(Handle* h, Entry* e) {
   }
 }
 
+void clear_readers(Entry* e) {
+  memset(e->reader_pid, 0, sizeof e->reader_pid);
+  memset(e->reader_refs, 0, sizeof e->reader_refs);
+}
+
+// Count `delta` references for process `pid`. A reader with no slot free
+// goes uncounted: its references are released by itself or never taken
+// back, as before readers were counted.
+void note_reader_locked(Entry* e, int32_t pid, int32_t delta) {
+  int spare = -1;
+  for (int i = 0; i < kReaders; ++i) {
+    if (e->reader_refs[i] > 0 && e->reader_pid[i] == pid) {
+      e->reader_refs[i] += delta;
+      return;
+    }
+    if (e->reader_refs[i] <= 0 && spare < 0) spare = i;
+  }
+  if (delta > 0 && spare >= 0) {
+    e->reader_pid[spare] = pid;
+    e->reader_refs[spare] = delta;
+  }
+}
+
+// True when process `pid` has ended: gone, or a zombie nobody has reaped
+// yet (kill(pid, 0) still succeeds on one).
+bool process_ended(int32_t pid) {
+  if (kill(pid, 0) != 0) return errno == ESRCH;
+  char path[64];
+  snprintf(path, sizeof path, "/proc/%d/stat", (int)pid);
+  FILE* f = fopen(path, "r");
+  if (!f) return false;
+  char buf[512];
+  size_t n = fread(buf, 1, sizeof buf - 1, f);
+  fclose(f);
+  buf[n] = '\0';
+  const char* p = strrchr(buf, ')');  // the state follows the command's ")"
+  return p && p[1] == ' ' && p[2] == 'Z';
+}
+
+// Take back the references of reader process `pid`, which has ended.
+void drop_reader_locked(Entry* e, int32_t pid) {
+  for (int i = 0; i < kReaders; ++i) {
+    if (e->reader_refs[i] > 0 && e->reader_pid[i] == pid) {
+      e->refcnt -= e->reader_refs[i];
+      if (e->refcnt < 0) e->refcnt = 0;
+      e->reader_refs[i] = 0;
+    }
+  }
+}
+
 // Evict LRU sealed refcnt==0 objects until at least `need` bytes could fit.
 // Returns 1 if anything was evicted.
 int evict_locked(Handle* h, uint64_t need) {
@@ -398,6 +457,7 @@ int evict_locked(Handle* h, uint64_t need) {
   victim->state = kEvicted;
   victim->offset = 0;
   victim->refcnt = 0;
+  clear_readers(victim);
   return 1;
 }
 
@@ -627,6 +687,7 @@ int rt_create(void* hv, const uint8_t* id, uint64_t size, uint64_t* offset_out) 
   e->offset = off;
   e->size = size;
   e->refcnt = 1;  // creator holds a ref until seal+release
+  clear_readers(e);
   e->lru_seq = ++s->lru_clock;
   s->stats.creates++;
   s->stats.create_bytes += size;
@@ -672,6 +733,7 @@ int rt_get(void* hv, const uint8_t* id, int64_t timeout_ms, uint64_t* offset_out
     Entry* e = find_entry(h, id);
     if (e && e->state == kSealed) {
       e->refcnt += 1;
+      note_reader_locked(e, getpid(), 1);
       e->lru_seq = ++s->lru_clock;
       s->stats.gets++;
       *offset_out = e->offset;
@@ -721,6 +783,7 @@ int rt_release(void* hv, const uint8_t* id) {
     return kNotFound;
   }
   if (e->refcnt > 0) e->refcnt -= 1;
+  note_reader_locked(e, getpid(), -1);
   h->hdr->stats.releases++;
   pthread_cond_broadcast(&h->hdr->cv);
   pthread_mutex_unlock(&h->hdr->mu);
@@ -737,6 +800,28 @@ int rt_delete(void* hv, const uint8_t* id) {
   if (!e) {
     pthread_mutex_unlock(&h->hdr->mu);
     return kNotFound;
+  }
+  // readers still holding references: those that have ended give them
+  // back. Whether one has ended is asked outside the arena's lock (a
+  // /proc read for each live one), then the entry is looked up again.
+  int32_t pids[kReaders];
+  int n = 0;
+  if (e->state == kSealed && e->refcnt > 0) {
+    for (int i = 0; i < kReaders; ++i)
+      if (e->reader_refs[i] > 0) pids[n++] = e->reader_pid[i];
+  }
+  if (n > 0) {
+    pthread_mutex_unlock(&h->hdr->mu);
+    bool ended[kReaders];
+    for (int j = 0; j < n; ++j) ended[j] = process_ended(pids[j]);
+    lock(&h->hdr->mu);
+    e = find_entry(h, id);
+    if (!e) {
+      pthread_mutex_unlock(&h->hdr->mu);
+      return kNotFound;
+    }
+    for (int j = 0; j < n; ++j)
+      if (ended[j]) drop_reader_locked(e, pids[j]);
   }
   if (e->state == kEvicted) {
     erase_entry(h, e);  // tombstone: data already freed
@@ -784,6 +869,7 @@ int rt_chan_create(void* hv, const uint8_t* id, uint64_t size,
   e->offset = off;
   e->size = size;
   e->refcnt = 1;
+  clear_readers(e);
   e->lru_seq = ~0ull;  // never evict channels
   ChannelHeader* ch = reinterpret_cast<ChannelHeader*>(h->base + off);
   memset(ch, 0, sizeof(ChannelHeader));

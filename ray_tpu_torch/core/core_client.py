@@ -330,7 +330,14 @@ class ActorCallTemplate:
 class CoreClient:
     def __init__(self, loop: asyncio.AbstractEventLoop | None = None,
                  client_mode: bool = False):
+        from ray_tpu_torch.core import fastpath
+
         self.cfg = get_config()
+        # the largest ring record: the cap also guards the pop buffer, as a
+        # record the consumer can never pop would wedge the ring (see
+        # rt_ring_pop_batch's kTooBig)
+        self._ring_record_cap = min(self.cfg.fastpath_record_max,
+                                    fastpath.POP_BUF_BYTES - 64)
         self.client_mode = client_mode  # remote driver: no local shm arena
         self.loop = loop or asyncio.get_event_loop()
         self.worker_id = WorkerID.generate()
@@ -367,6 +374,9 @@ class CoreClient:
         # and controller evict/replace replicas in ~one raylet reap tick
         # instead of waiting out a health-check period
         self._actor_death_listeners: list = []
+        # a restartable actor's constructor-arg pins, dropped at its DEAD
+        # push (_pin_until_dead)
+        self._ctor_pins: dict[ActorID, list] = {}
         # owner-local actor-handle refcounting (lease-starvation fix):
         # unnamed actors created by THIS driver are auto-killed once the
         # last local handle drops and their submitted work drains, so
@@ -413,6 +423,7 @@ class CoreClient:
         # dispatch; ref: dependency resolver holding arg refs)
         self._inflight_pins: dict[TaskID, list] = {}
         self._ship_collect: list | None = None  # set during arg serialization
+        self.sealed_args = 0  # by-value args sealed into the arena (_resolve_args)
         # counts are bumped off-loop too. Reentrant: a garbage-collection
         # pass can run inside a section and drop an ActorHandle (or an
         # ObjectRef on the loop thread), whose __del__ takes this lock again
@@ -566,6 +577,7 @@ class CoreClient:
             self._actor_info[actor_id] = message
             if isinstance(message, dict) and message.get("state") == DEAD:
                 self._tunnel_actor_seen.pop(actor_id, None)
+                self._ctor_pins.pop(actor_id, None)
                 for cb in list(self._actor_death_listeners):
                     try:
                         cb(actor_id, message)
@@ -1010,28 +1022,39 @@ class CoreClient:
         under the inline threshold (the sharded plane's shard seals: a
         shard must be arena-resident so consumers on this node read it
         zero-copy and remote nodes can pull it without an owner hop)."""
-        oid = ObjectID.from_random()
         meta, buffers = serialization.dumps_with_buffers(value)
         size = serialization.total_size(meta, buffers)
+        if (size > self.cfg.max_inline_object_size
+                or prefer_shm) and self.store is not None:
+            self._maybe_request_spill(size)
+            return self._seal_owned(meta, buffers, size)
+        # client mode has no local shm: every owned object is memory-
+        # store resident and owner-served (borrowers fetch over RPC)
         metrics.objects_put.inc()
         metrics.object_bytes_put.inc(size)
+        oid = ObjectID.from_random()
         entry = _MemEntry()
-        if (size <= self.cfg.max_inline_object_size
-                and not prefer_shm) or self.store is None:
-            # client mode has no local shm: every owned object is memory-
-            # store resident and owner-served (borrowers fetch over RPC)
-            entry.packed = _pack_bytes(meta, buffers, size)
-            self.memory_store[oid] = entry
-            entry.ready.set()
-        else:
-            self._maybe_request_spill(size)
-            buf = self.store.create(oid, size)
-            serialization.pack_into(meta, buffers, buf)
-            self.store.seal(oid)
-            entry.in_shm = True
-            self.memory_store[oid] = entry
-            entry.ready.set()
-            self._call_on_loop(self._register_location(oid))
+        entry.packed = _pack_bytes(meta, buffers, size)
+        self.memory_store[oid] = entry
+        entry.ready.set()
+        return self._new_owned_ref(oid)
+
+    def _seal_owned(self, meta: bytes, buffers: list, size: int) -> ObjectRef:
+        """The arena half of ``put_value``: seal a value that
+        ``serialization.dumps_with_buffers`` took apart into the local
+        arena, as an object of ours. Raises as ``store.create`` does when
+        the arena cannot hold it; the caller has asked for a spill."""
+        metrics.objects_put.inc()
+        metrics.object_bytes_put.inc(size)
+        oid = ObjectID.from_random()
+        buf = self.store.create(oid, size)
+        serialization.pack_into(meta, buffers, buf)
+        self.store.seal(oid)
+        entry = _MemEntry()
+        entry.in_shm = True
+        self.memory_store[oid] = entry
+        entry.ready.set()
+        self._call_on_loop(self._register_location(oid))
         return self._new_owned_ref(oid)
 
     def spill_pressure(self, size: int) -> bool:
@@ -1054,13 +1077,22 @@ class CoreClient:
         200ms monitor backstops the window."""
         if not self.spill_pressure(size):
             return
+        if _in_loop(self.loop):
+            self._bg.spawn(self._spill_for(size), self.loop)
+            return
         try:
-            if _in_loop(self.loop):
-                self._bg.spawn(
-                    self.raylet.call("spill_now", {"need": size}), self.loop)
-            else:
-                self._run_sync(
-                    self.raylet.call("spill_now", {"need": size}), timeout=60)
+            self._run_sync(self._spill_for(size), timeout=60)
+        except Exception:
+            log.debug("spill_now request failed", exc_info=True)
+
+    async def _spill_for(self, size: int) -> None:
+        """Ask the raylet to spill room for ``size`` more bytes, when the
+        arena is under pressure (the loop's side of _maybe_request_spill:
+        a large task argument's seal awaits it)."""
+        if not self.spill_pressure(size):
+            return
+        try:
+            await self.raylet.call("spill_now", {"need": size})
         except Exception:
             # advisory: create() still retries under arena pressure
             log.debug("spill_now request failed", exc_info=True)
@@ -1681,6 +1713,8 @@ class CoreClient:
             for a in kwargs.values():
                 if isinstance(a, ObjectRef):
                     return None
+        if self._outgrows_ring(args, kwargs):
+            return None
         state = self.sched_keys.get(key)
         if state is None:
             return None
@@ -1745,10 +1779,7 @@ class CoreClient:
             self._trace_pending.pop(ObjectID.for_task_return(task_id, 0),
                                     None)
             return None  # plain pickle can't carry it: cloudpickle path
-        # cap also guards the pop buffer: a record the consumer can never
-        # pop would wedge the ring (see rt_ring_pop_batch's kTooBig)
-        if len(rec) > min(self.cfg.fastpath_record_max,
-                          fastpath.POP_BUF_BYTES - 64):
+        if len(rec) > self._ring_record_cap:
             self._trace_pending.pop(ObjectID.for_task_return(task_id, 0),
                                     None)
             return None  # big args belong in the object store
@@ -2285,6 +2316,17 @@ class CoreClient:
         w.fast_lane = lane
         self._fast_lanes.append(lane)
 
+    def _outgrows_ring(self, args, kwargs) -> bool:
+        """True when one top-level argument alone is larger than a ring
+        record may be: the call takes the RPC path, which seals it into
+        the arena, without pickling it for the ring first."""
+        cap = self._ring_record_cap
+        for a in (*args, *kwargs.values()) if kwargs else args:
+            n = getattr(a, "nbytes", None)
+            if type(n) is int and n > cap:
+                return True
+        return False
+
     def _tunnel_shrink_args(self, args, kwargs):
         """Descriptor conversion for an oversized tunnel record: every
         big top-level value (bytes / buffer-backed array) seals into the
@@ -2408,6 +2450,9 @@ class CoreClient:
         if self._actor_queues.get(actor_id) or self._actor_inflight.get(
                 actor_id):
             return None
+        tunnel = getattr(lane.ring, "tunnel", False)
+        if not tunnel and self._outgrows_ring(args, kwargs):
+            return None
         has_ref = any(isinstance(a, ObjectRef) for a in args)
         if not has_ref and kwargs:
             has_ref = any(isinstance(v, ObjectRef) for v in kwargs.values())
@@ -2426,7 +2471,6 @@ class CoreClient:
         lane.next_seq = seq + 1  # advisory mirror (stats/tests)
         light = ("actor", actor_id, method, args, kwargs)
         pins = None
-        tunnel = getattr(lane.ring, "tunnel", False)
         trace = (self._trace_submit_leg(
             task_id, method, "tunnel" if tunnel else "ring")
             if self._trace_on else b"")
@@ -2452,8 +2496,7 @@ class CoreClient:
                     self._trace_pending.pop(
                         ObjectID.for_task_return(task_id, 0), None)
                     return None
-        if len(rec) > min(self.cfg.fastpath_record_max,
-                          fastpath.POP_BUF_BYTES - 64):
+        if len(rec) > self._ring_record_cap:
             self._trace_pending.pop(ObjectID.for_task_return(task_id, 0),
                                     None)
             return None  # big args belong in the object store
@@ -2529,6 +2572,9 @@ class CoreClient:
             args, kwargs, ok = self._fast_resolve_ref_args(args, kwargs)
             if not ok:
                 return None  # pending/remote ref: RPC path for this call
+        tunnel = getattr(lane.ring, "tunnel", False)
+        if not tunnel and self._outgrows_ring(args, kwargs):
+            return None
         task_id = TaskID.generate_actor()
         tid = task_id.binary()
         now_ns = time.perf_counter_ns()
@@ -2537,7 +2583,6 @@ class CoreClient:
         seq = next(lane.seq_counter)
         lane.next_seq = seq + 1
         pins = None
-        tunnel = getattr(lane.ring, "tunnel", False)
         trace = (self._trace_submit_leg(
             task_id, method, "tunnel" if tunnel else "ring")
             if self._trace_on else b"")
@@ -2561,8 +2606,7 @@ class CoreClient:
                     self._trace_pending.pop(
                         ObjectID.for_task_return(task_id, 0), None)
                     return None
-        if len(rec) > min(self.cfg.fastpath_record_max,
-                          fastpath.POP_BUF_BYTES - 64):
+        if len(rec) > self._ring_record_cap:
             self._trace_pending.pop(ObjectID.for_task_return(task_id, 0),
                                     None)
             return None  # big args belong in the object store
@@ -2728,8 +2772,7 @@ class CoreClient:
                 except Exception:
                     self._trace_pending.pop(oid, None)
                     return None
-        if len(rec) > min(self.cfg.fastpath_record_max,
-                          fastpath.POP_BUF_BYTES - 64):
+        if len(rec) > self._ring_record_cap:
             self._trace_pending.pop(oid, None)
             return None
         if pins:
@@ -4062,19 +4105,24 @@ class CoreClient:
         await state.pending.put(spec)
         await self._pump(key, state)
 
-    async def _resolve_args(self, args, pins: list | None = None):
+    async def _resolve_args(self, args, pins: list, seal: bool = True):
         """Dependency resolution (ref: dependency_resolver.cc): owned inline
         args become values; everything else ships as a ref descriptor the
-        executor fetches. ``pins`` collects every ObjectRef the args carry
-        (top-level AND nested inside packed values) so the caller can keep
-        them alive until the task completes — without this the owner could
-        free an object while its ref is in flight to a slow-starting
-        worker."""
+        executor fetches. A plain value above ``max_inline_object_size``
+        is sealed into the local arena as an object of ours, as ``put``
+        would store it, and ships as a ref too (ref: the submitter's
+        promotion of args above max_direct_call_object_size to plasma);
+        with no local store (client mode), or ``seal`` False (a detached
+        actor's constructor: it outlives us, and our objects with us), it
+        stays inline, as ``put``'s objects do. ``pins`` collects every ObjectRef the args carry
+        (top-level, nested inside packed values, and the sealed values'
+        own) so the caller can keep them alive until the task completes
+        — without this the owner could free an object while its ref is in
+        flight to a slow-starting worker."""
         out = []
         for a in args:
             if isinstance(a, ObjectRef):
-                if pins is not None:
-                    pins.append(a)
+                pins.append(a)
                 entry = self.memory_store.get(a.id)
                 if entry is not None:
                     await entry.ready.wait()
@@ -4096,10 +4144,20 @@ class CoreClient:
                 # setting and clearing _ship_collect: single loop thread.
                 self._ship_collect = pins
                 try:
-                    packed = serialization.pack(a)
+                    meta, bufs = serialization.dumps_with_buffers(a)
                 finally:
                     self._ship_collect = None
-                out.append(("v", packed))
+                size = serialization.total_size(meta, bufs)
+                if (not seal or self.store is None
+                        or size <= self.cfg.max_inline_object_size):
+                    out.append(("v", serialization.pack_parts(meta, bufs)))
+                    continue
+                await self._spill_for(size)
+                ref = self._seal_owned(meta, bufs, size)
+                pins.append(ref)
+                self.sealed_args += 1
+                self.note_ref_shipped(ref.id)
+                out.append(("r", ref.id.binary(), ref.owner_address))
         return out
 
     async def _pump(self, key, state: _SchedulingKeyState):
@@ -4754,20 +4812,43 @@ class CoreClient:
     async def _register_actor(self, spec: dict) -> dict:
         # the refs among the constructor's args stay pinned until the actor
         # is created or dead: its worker fetches them only once it has
-        # started, which under load outlasts the ship grace
+        # started, which under load outlasts the ship grace. An actor that
+        # may restart holds them until it is dead: the GCS gives every
+        # incarnation the same spec, refs and sealed args included
         pins: list = []
-        spec["args"] = await self._resolve_args(spec["args"], pins)
+        seal = spec.get("lifetime") != "detached"
+        spec["args"] = await self._resolve_args(spec["args"], pins, seal)
         spec["kwargs"] = dict(
             zip(
                 spec["kwargs"].keys(),
-                await self._resolve_args(list(spec["kwargs"].values()), pins),
+                await self._resolve_args(list(spec["kwargs"].values()), pins, seal),
             )
         )
         view = await self.gcs.call("register_actor", {"spec": spec})
         self._actor_info[view["actor_id"]] = view
-        if pins:
+        if pins and spec.get("max_restarts"):
+            self._bg.spawn(self._pin_until_dead(view["actor_id"], pins), self.loop)
+        elif pins:
             self._bg.spawn(self._pin_until_created(view["actor_id"], pins), self.loop)
         return view
+
+    async def _pin_until_dead(self, actor_id: ActorID, pins: list) -> None:
+        """Hold ``pins`` (a restartable actor's creation args' refs) until
+        the actor's DEAD push (``_on_push``) or our shutdown drops them."""
+        self._ctor_pins[actor_id] = pins
+        if actor_id not in self._subscribed_actors:
+            self._subscribed_actors.add(actor_id)
+            try:
+                await self.gcs.call(
+                    "subscribe", {"channel": f"actor:{actor_id.hex()}"})
+            except (rpc.RpcError, OSError):
+                self._subscribed_actors.discard(actor_id)
+        try:  # dead before the subscription took: no push will come
+            info = await self._refresh_actor(actor_id)
+        except (rpc.RpcError, OSError):
+            return
+        if info is None or info.get("state") == DEAD:
+            self._ctor_pins.pop(actor_id, None)
 
     async def _pin_until_created(self, actor_id: ActorID, pins: list) -> None:
         """Hold ``pins`` (the creation args' refs) until the GCS reports

@@ -27,8 +27,8 @@ def build_llm_processor(model_config, *, params=None, batch_size: int = 8,
     """Returns dataset -> dataset applying batched generation. Without
     ``params``, each task worker draws the weights itself, a random init
     from seed 0 on ``device`` (None means cuda), once per config and
-    device. Given ``params`` travel with every task by value: a card's
-    weights ride the runtime's RPC frame into each task. On a CUDA
+    device. Given ``params`` travel with every task by value: each task's
+    copy is sealed into the caller's shm arena and read from there. On a CUDA
     ``device`` each task leases one card."""
     on_card = torch.device("cuda" if device is None else device).type == "cuda"
 

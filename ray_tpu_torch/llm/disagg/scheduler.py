@@ -919,8 +919,8 @@ def build_disagg_deployment(model_config, *, params=None, params_fn=None,
     (pinned by the lease for whole cards, named by the scheduler and set
     by the worker for shares), and draws its own seed-0 weights there
     unless ``params`` are given
-    (weights by value ride the RPC frame, so give them only at small
-    sizes). ``device="cpu"`` in ``kw`` builds the pools on the CPU and
+    (weights by value are copied into the caller's arena and out again
+    for every worker, so give them only at small sizes). ``device="cpu"`` in ``kw`` builds the pools on the CPU and
     leases no card."""
     from ray_tpu_torch import serve
 

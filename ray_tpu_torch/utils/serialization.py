@@ -380,7 +380,11 @@ def pack_into(meta: bytes, buffers: list, dest: memoryview) -> int:
 
 def pack(obj: Any) -> bytes:
     """One-shot serialize to a contiguous blob (inline/small-object path)."""
-    meta, buffers = dumps_with_buffers(obj)
+    return pack_parts(*dumps_with_buffers(obj))
+
+
+def pack_parts(meta: bytes, buffers: list) -> bytes:
+    """``pack`` of what ``dumps_with_buffers`` returned."""
     if not buffers:
         # submission hot path: small task args/results carry no
         # out-of-band buffers — skip the bytearray + pack_into round trip
@@ -418,26 +422,31 @@ _HAVE_PEP688 = sys.version_info >= (3, 12)
 
 
 def _guarded_slice(sl: memoryview, guard):
+    """A read-only, zero-copy view of ``sl`` that keeps ``guard`` alive."""
     if _HAVE_PEP688:
-        return _GuardedBuffer(sl, guard)
+        return _GuardedBuffer(sl.toreadonly(), guard)
     import ctypes
 
     try:
+        # from a writable slice: ctypes cannot view a read-only one
         view = (ctypes.c_char * sl.nbytes).from_buffer(sl)
     except (TypeError, ValueError):
         # read-only source: copy (no aliasing view to tie, but the guard
         # still rides along so the caller's release logic stays uniform)
         view = (ctypes.c_char * sl.nbytes).from_buffer_copy(sl)
     view._guard = guard
-    return view
+    return memoryview(view).cast("B").toreadonly()  # holds the view
 
 
 def unpack(src, guard=None) -> Any:
     """Deserialize a packed blob; array buffers alias ``src`` (zero-copy).
 
     If ``guard`` is given, every zero-copy view keeps it alive (see
-    _GuardedBuffer); returns (value, had_out_of_band_buffers) semantics are
-    folded into the guard: when there are no buffers the guard is unused.
+    _GuardedBuffer) and is read-only: ``src`` is then a sealed object in
+    the shared arena, which a write would change under every other reader
+    (an array unpacked from bytes is read-only too). Returns (value,
+    had_out_of_band_buffers) semantics are folded into the guard: when
+    there are no buffers the guard is unused.
     """
     src = memoryview(src).cast("B")
     (meta_len,) = struct.unpack_from("<I", src, 0)

@@ -16,6 +16,13 @@ from ray_tpu_torch.models.llama import AdamW, LlamaConfig, llama_init, make_trai
 from ray_tpu_torch.train import Checkpoint, CheckpointManager
 from ray_tpu_torch.utils.serialization import HostTensor, from_host, to_host
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 10.7 s, no module set-up (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=90)
+
+
 REPORTS = [{"loss": 3.0, "step": 0}, {"loss": 1.0, "step": 1}, {"loss": 2.5, "step": 2},
            {"step": 3}, {"loss": 0.5, "step": 4}, {"loss": 4.0, "step": 5}]
 

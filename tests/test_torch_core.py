@@ -12,10 +12,14 @@ xdist workers' timing-bound tests.
 - tensors through ``put``/``get``, task arguments and returns, and a CUDA
   tensor that a process without CUDA must refuse to read;
 - a worker that loads neither ``jax`` nor ``ray_tpu``;
-- ``collective.create_collective_group`` over the port's actors.
+- ``collective.create_collective_group`` over the port's actors;
+- by-value arguments above the inline limit, sealed into a runtime's own
+  small arena: what each path receives against what JAX's runtime
+  delivers by value (``_torch_core_args_jax``), and the arena empty again.
 """
 
 import dataclasses
+import gc
 import os
 import time
 
@@ -24,14 +28,18 @@ import pytest
 import torch
 
 import ray_tpu_torch
+import _torch_core_args_jax as _args_jax
+import _torch_data_jax
+from _torch_core_args_jax import KINDS, PATHS, arg, digest, restarted_digest
 from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
 from ray_tpu_torch import config
 from ray_tpu_torch.core.ref import ActorError, TaskError
 from ray_tpu_torch.utils import serialization
 
 # slowest case ~7 s alone (test_cards_come_back_when_the_worker_exits); set-up
-# and tear-down (the runtime's start and shutdown) a few seconds
-_module_limit, _test_limit = time_limits(module_s=60, test_s=40)
+# and tear-down (the runtime's start and shutdown) a few seconds, but the
+# large-argument cases' set-up also runs JAX's runtime once (~11 s alone)
+_module_limit, _test_limit = time_limits(module_s=120, test_s=40)
 
 
 @pytest.fixture(scope="module")
@@ -638,3 +646,180 @@ def test_lease_granted_after_its_owner_left_is_taken_back(tmp_path):
     finally:
         cluster.shutdown()
         io.stop()
+
+
+# ------------------------------------------------ large by-value arguments
+# Last in the module: ``small_rt`` ends the module's runtime where a worker
+# still holds it, so no test of ``rt`` may come after these.
+ARENA_BYTES = 8 << 20
+
+
+@pytest.fixture(scope="module")
+def small_rt():
+    """A runtime of its own with an 8 MiB arena: room for a few 1 MiB
+    arguments, and too small for the one that must not fit."""
+    ray_tpu_torch.shutdown()
+    saved = config.get_config()
+    config.set_config(dataclasses.replace(saved, worker_lease_timeout_s=1.0))
+    ray_tpu_torch.init(num_cpus=2, object_store_memory=ARENA_BYTES)
+    yield ray_tpu_torch
+    ray_tpu_torch.shutdown()
+    config.set_config(saved)
+
+
+@pytest.fixture(scope="module")
+def jax_digests(tmp_path_factory):
+    """What each call of ``_torch_core_args_jax`` received on JAX's
+    runtime, which sends every argument by value."""
+    return _torch_data_jax.run_once(tmp_path_factory, "_torch_core_args_jax.py", timeout=100)
+
+
+def _packed_size(x) -> int:
+    return serialization.total_size(*serialization.dumps_with_buffers(x))
+
+
+_digest_task = ray_tpu_torch.remote(_args_jax.digest_task)
+_digest_kwarg = ray_tpu_torch.remote(_args_jax.digest_kwarg)
+_Digester = ray_tpu_torch.remote(_args_jax.Digester)
+
+
+def _settled_arena(core, timeout: float = 30.0) -> int:
+    """The arena's bytes in use once the owner has freed all it holds (a
+    shipped ref's grace included: 0, since nothing else lives in this
+    runtime's arena), or at the deadline."""
+    deadline = time.monotonic() + timeout
+    while core.store.bytes_in_use and time.monotonic() < deadline:
+        gc.collect()
+        time.sleep(0.1)
+    return core.store.bytes_in_use
+
+
+def _call(rt, path: str, x):
+    if path == "task":
+        return rt.get(_digest_task.remote(x), timeout=60)
+    if path == "kwarg":
+        return rt.get(_digest_kwarg.remote(x=x), timeout=60)
+    if path == "actor_method":
+        actor = _Digester.remote()
+        rt.get(actor.first_digest.remote(), timeout=60)  # started: only x is timed
+        got = rt.get(actor.digest.remote(x), timeout=60)
+    else:  # actor_ctor
+        actor = _Digester.remote(x)
+        got = rt.get(actor.first_digest.remote(), timeout=60)
+    rt.kill(actor)
+    return got
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("path", PATHS)
+def test_large_argument_travels_through_the_arena(small_rt, jax_digests, path, kind):
+    """A by-value argument above the inline limit is sealed into the
+    caller's arena and ships as a ref: what arrives is what JAX's runtime
+    delivers by value, bit for bit and flag for flag, and once the call is
+    done and its pins drop the arena is empty again."""
+    core = small_rt.get_core()
+    x = arg(kind)
+    assert _packed_size(x) > config.get_config().max_inline_object_size
+    assert _settled_arena(core) == 0
+    sealed = core.sealed_args
+    got = _call(small_rt, path, x)
+    assert got == jax_digests[f"{path}/{kind}"]
+    assert got[:4] == digest(x)[:4]
+    assert core.sealed_args == sealed + 1
+    assert _settled_arena(core) == 0
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_argument_at_the_inline_limit_goes_by_value(small_rt, kind):
+    """A packed size of the limit or less stays in the push frame (the RPC
+    path: a named task never rides a ring), one byte over is sealed; the
+    two arrive alike."""
+    core = small_rt.get_core()
+    limit = config.get_config().max_inline_object_size
+    n = (limit - _packed_size(arg(kind, 1))) // 4 + 1  # about the limit
+    while _packed_size(arg(kind, n)) > limit:
+        n -= 1
+    while _packed_size(arg(kind, n + 1)) <= limit:
+        n += 1
+    under, over = arg(kind, n), arg(kind, n + 1)
+    assert _packed_size(under) <= limit < _packed_size(over)
+    sealed = core.sealed_args
+    by_value = _digest_task.options(name="by_value")
+    got_under = small_rt.get(by_value.remote(under), timeout=60)
+    assert core.sealed_args == sealed
+    got_over = small_rt.get(by_value.remote(over), timeout=60)
+    assert core.sealed_args == sealed + 1
+    assert got_under[:4] == digest(under)[:4] and got_over[:4] == digest(over)[:4]
+    assert got_under[4] == got_over[4]  # a numpy array read-only either way
+
+
+def test_large_constructor_argument_survives_a_restart(small_rt, jax_digests, monkeypatch):
+    """A restartable actor's sealed constructor argument stays in the
+    arena while the actor lives: each incarnation reads the same bytes,
+    as JAX's runtime gives them, and once it is dead the arena is empty."""
+    from ray_tpu_torch.core.core_client import CoreClient
+
+    monkeypatch.setattr(CoreClient, "BORROW_GRACE_S", 0.0)
+    core = small_rt.get_core()
+    assert _settled_arena(core) == 0
+    actor = _Digester.options(max_restarts=1).remote(arg("numpy"))
+    first = small_rt.get(actor.first_digest.remote(), timeout=60)
+    time.sleep(1.5)  # past the (zero) grace: only the pins hold it now
+    got = restarted_digest(small_rt, actor, timeout=20)  # inside the test limit
+    assert got == first == jax_digests["actor_ctor_restarted/numpy"]
+    small_rt.kill(actor)
+    assert _settled_arena(core) == 0
+
+
+@ray_tpu_torch.remote
+def _read_nested(v):
+    time.sleep(1.0)  # past the (zero) grace of a ref in flight
+    return float(ray_tpu_torch.get(v["inner"]).sum()), digest(v["big"])
+
+
+def test_ref_nested_in_a_large_argument_lives_until_read(small_rt, jax_digests, monkeypatch):
+    """A ref packed inside a sealed argument stays pinned until the task
+    has run, though the caller drops its own handle at once."""
+    from ray_tpu_torch.core.core_client import CoreClient
+
+    monkeypatch.setattr(CoreClient, "BORROW_GRACE_S", 0.0)
+    inner = np.arange(300_000, dtype=np.float64)  # 2.4 MB: in the arena
+    value = {"big": arg("numpy"), "inner": small_rt.put(inner)}
+    ref = _read_nested.remote(value)
+    del value
+    gc.collect()
+    total, got = small_rt.get(ref, timeout=60)
+    assert total == float(inner.sum()) and got == jax_digests["task/numpy"]
+
+
+def test_large_argument_the_arena_cannot_hold_raises_as_put_does(small_rt):
+    """An argument larger than the arena fails the call with the error
+    ``put`` of it raises, and never falls back to the socket."""
+    core = small_rt.get_core()
+    x = arg("numpy", 2 * ARENA_BYTES // 4)
+    with pytest.raises(Exception) as put_error:
+        small_rt.put(x)
+    sealed = core.sealed_args
+    with pytest.raises(type(put_error.value)):
+        small_rt.get(_digest_task.remote(x), timeout=60)
+    assert core.sealed_args == sealed
+
+
+@ray_tpu_torch.remote(max_retries=1)
+def _digest_once_died(x, marker):
+    if not os.path.exists(marker):
+        open(marker, "w").close()
+        os._exit(1)  # the first attempt's worker dies with the argument read
+    return digest(x)
+
+
+def test_large_argument_of_a_retried_task_is_freed(small_rt, jax_digests, tmp_path):
+    """A task retried after its worker died reads the same sealed
+    argument again, and the arena is empty again after it: the dead
+    worker's reference to it is taken back."""
+    core = small_rt.get_core()
+    assert _settled_arena(core) == 0
+    got = small_rt.get(_digest_once_died.remote(arg("numpy"), str(tmp_path / "died")),
+                       timeout=60)
+    assert got == jax_digests["task/numpy"] and (tmp_path / "died").exists()
+    assert _settled_arena(core) == 0

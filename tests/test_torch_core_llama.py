@@ -19,6 +19,13 @@ import ray_tpu_torch
 from ray_tpu.models import llama as jllama
 from ray_tpu_torch.models import llama as tllama
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 16.5 s, no module set-up (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=120)
+
+
 ATOL = 1e-5
 
 _jloss = jax.jit(jllama.llama_loss, static_argnames=("cfg",))

@@ -20,6 +20,13 @@ from ray_tpu_torch.llm import ContinuousBatchingEngine
 from ray_tpu_torch.llm import engine as teng
 from ray_tpu_torch.models import llama as tllama
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 15.2 s, module set-up 11.8 s (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=120)
+
+
 PS = 8
 PROMPTS = [[1, 2, 3, 4, 5], [7, 8, 9], [11, 12, 13, 14, 15, 16, 17],
            list(range(30, 50)), [21, 22]]

@@ -20,6 +20,13 @@ from ray_tpu_torch.llm import ContinuousBatchingEngine
 from ray_tpu_torch.llm import engine as teng
 from ray_tpu_torch.models import llama as tllama
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 30.1 s, module set-up 20.8 s (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=180, test_s=180)
+
+
 PS = 8
 CFG = dict(vocab_size=512, d_model=128, n_layers=2, n_heads=4, n_kv_heads=4,
            d_ff=256, max_seq_len=512, dtype="float32")

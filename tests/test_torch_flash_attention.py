@@ -26,6 +26,13 @@ from ray_tpu_torch.ops.flash_attention import (
     flash_attention_forward,
 )
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 1.7 s, no module set-up (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=60)
+
+
 ATOL = 2e-5
 
 

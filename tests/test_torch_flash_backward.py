@@ -34,6 +34,13 @@ from ray_tpu_torch.ops.flash_attention import (
 )
 
 ATOL, RTOL = 5e-5, 5e-4
+
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 5.2 s, no module set-up (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=60)
+
 SHAPES = [(64, 64), (64, 128), (128, 64)]
 
 

@@ -13,6 +13,13 @@ from ray_tpu.models import llama as jllama
 from ray_tpu_torch.llm import generate
 from ray_tpu_torch.models import llama as tllama
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 6.0 s, module set-up 5.8 s (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=60)
+
+
 PROMPTS = [[5, 17, 42, 7], [3, 9], [11, 2, 8, 200, 31, 4, 77]]
 
 

@@ -9,6 +9,13 @@ import sys
 import pytest
 import torch
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 7.0 s, no module set-up (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=90)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBPACKAGES = ["ray_tpu_torch", "ray_tpu_torch.ops", "ray_tpu_torch.models",
                "ray_tpu_torch.llm", "ray_tpu_torch.llm.disagg",

@@ -10,6 +10,13 @@ import torch
 from ray_tpu_torch import kernels
 from ray_tpu_torch.ops.flash_attention import _fit, _rows_aligned
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 0.0 s, no module set-up (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=60)
+
+
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_bwd_dq_tc_kernelILi128EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_iiixxxxxxxxxxxxfi' for 'sm_90a'

@@ -37,6 +37,13 @@ from ray_tpu.devtools.lint import lint_source as jlint_source
 from ray_tpu.devtools.lint import rules as jrules  # noqa: F401  (JAX's rules, registered at import)
 from ray_tpu_torch.devtools.lint import engine, flow, lint_paths, lint_source, rules  # noqa: F401
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 14.9 s, no module set-up (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=120)
+
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 JAX_FIXTURES = os.path.join(HERE, "lint_fixtures")

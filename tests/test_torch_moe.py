@@ -23,6 +23,13 @@ from ray_tpu_torch.parallel import moe as tmoe
 
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 14.9 s, module set-up 2.9 s (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=120)
+
+
 
 def _f32(rng, *shape, scale=1.0):
     return (rng.standard_normal(shape) * scale).astype(np.float32)

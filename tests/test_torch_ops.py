@@ -15,6 +15,13 @@ from ray_tpu_torch.ops import basic as tbasic
 from ray_tpu_torch.ops.attention import attention as tattention
 from ray_tpu_torch.parallel.ring_attention import reference_attention as treference
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 1.1 s, no module set-up (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=60)
+
+
 ATOL = 1e-5
 
 

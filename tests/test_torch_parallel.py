@@ -38,6 +38,13 @@ from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.parallel import sharding as tsharding
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 3.4 s, module set-up 60.9 s (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=600, test_s=60)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HELPER = os.path.join(ROOT, "tests", "_torch_dist_rank.py")
 WORLD = 4

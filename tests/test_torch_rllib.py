@@ -31,6 +31,13 @@ from ray_tpu_torch import rllib
 from ray_tpu_torch.rllib import (appo, connectors, core, dqn, impala, learner, offline,
                                  replay_buffer, sac)
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 11.8 s, no module set-up (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=120)
+
+
 TOL = 1e-5
 
 

@@ -16,6 +16,13 @@ import pytest
 
 from ray_tpu_torch.rllib import envs
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 1.2 s, no module set-up (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=60)
+
+
 N_ENVS = 4
 STEPS = 1600
 

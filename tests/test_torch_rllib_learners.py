@@ -20,6 +20,13 @@ import torch
 
 from ray_tpu_torch.rllib import Learner
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 0.1 s, module set-up 11.3 s (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=60)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HELPER = os.path.join(ROOT, "tests", "_torch_rllib_rank.py")
 sys.path.insert(0, os.path.join(ROOT, "tests"))

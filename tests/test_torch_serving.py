@@ -25,6 +25,13 @@ from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.serve import Application, batch, deployment
 from ray_tpu_torch.serve.exceptions import BackPressureError
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 8.3 s, module set-up 7.6 s (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=90)
+
+
 PS = 8
 PROMPTS = [[1, 2, 3, 4, 5], [7, 8, 9], list(range(30, 50)), [21, 22]]
 MAX_NEW = 8

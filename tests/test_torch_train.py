@@ -23,6 +23,13 @@ from ray_tpu_torch.models import llama as tllama
 
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
+from _torch_time_limit import session_watchdog, time_limits  # noqa: F401 — autouse
+
+# slowest test 13.2 s, no module set-up (the port's modules alone under -n 6);
+# the limits are several times that, so one that fires names a stalled test
+_module_limit, _test_limit = time_limits(module_s=120, test_s=120)
+
+
 HYPER = dict(learning_rate=1e-2, b1=0.9, b2=0.99, eps=1e-8, weight_decay=1e-2)
 
 

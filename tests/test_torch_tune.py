@@ -26,6 +26,7 @@ One port runtime serves the module; idle leases go back after 1 s.
 
 import dataclasses
 import gc
+import glob
 import math
 import os
 import random
@@ -420,6 +421,11 @@ tune.Tuner(trainable,
     finally:
         p.send_signal(signal.SIGKILL)
         p.wait(timeout=30)
+        # a SIGKILLed driver leaves its in-process node's arena and its
+        # rings in /dev/shm: one 512 MiB arena a run, for good
+        for name in (glob.glob(f"/dev/shm/rtt_c{p.pid}_*")
+                     + glob.glob(f"/dev/shm/rtt_fp_{p.pid}_*")):
+            os.unlink(name)
     assert os.listdir(marker_dir), "driver never progressed"
 
     # resume in THIS process (the module's runtime)
